@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-1. Prints the card (``nvidia-smi``), builds every CUDA kernel of the main
-   path from ``mcm_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel)
-   and prints ptxas's register / shared-memory / spill lines.
+1. Prints the card (``nvidia-smi``), builds every CUDA kernel of the
+   port's paths from ``mcm_tpu_torch/csrc`` (one ``nvcc`` per source, in
+   parallel) and prints ptxas's register / shared-memory / spill lines.
 2. Kernel phase: each kernel against its plain PyTorch version on the card
-   at the main path's shapes, with the tolerance stated; CUDA-event times
-   of the kernel, the plain version and one PyTorch library call for the
+   at its paths' shapes, with the tolerance stated; CUDA-event times of
+   the kernel, the plain version and one PyTorch library call for the
    same function, beside the least time the card could take (the bound).
 3. Slice phase: the eval CLI (``mcm_tpu_torch.cli.eval_ood``) at the full
    width and depth of ViT-B/16, random weights from seed 0, on a synthetic
@@ -16,8 +16,15 @@
    launched (bsd: 12 per image batch; mcm: 1 per image batch), that every
    score is finite and that the CSV was written; then scores one batch
    through the math paths and bounds the difference.
-4. Prints one ``{"kernels": [...]}`` line, the card line again and, last,
-   ``{"ok": true, "device": {...}}``.
+4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
+   ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
+   turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh`` and
+   ``pallas_batched``: asserts 12 fused-MLP and 12 split-heads launches
+   per image batch (no bsd, one mcm), and holds each setting's features
+   on one batch against the default path's.  Then the bench once with
+   default knobs at B = 512 with the decode-included pass, and its row.
+5. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line, the
+   card line again and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without a card.  Imports nothing of JAX
 or of the JAX package.
@@ -50,6 +57,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # two sum in different orders; fp32 attention at fp32 summation noise;
 # scores at fp32 summation noise of a 512-long dot and a 1000-long sum
 BSD_TOL = {torch.bfloat16: 3.2e-2, torch.float32: 2e-5}
+# fused MLP: bf16 outputs of |y| < 8 within one bf16 ulp (3.1e-2; h may
+# round to a neighbouring bf16 value, which moves y by far less); fp32 at
+# the summation-order noise of D + F ≤ 5120 terms (the JAX package's
+# test_fused_mlp_matches_reference tolerance)
+MLP_TOL = {torch.bfloat16: 3.2e-2, torch.float32: 2e-4}
 MCM_TOL_REL = 1e-4   # of the largest |score|; var at T = 100 is ~1e-13
 # slice: kernel path vs math path (bf16 softmax, per-op roundings) on one
 # batch — the cosine bound the JAX package holds bf16 features to, and
@@ -179,8 +191,82 @@ def mcm_case(b, c, d, score, T, main_path: bool) -> dict:
             "bound_ms": bms, "bound_by": by, "launches_per_batch": 1}
 
 
+def _act(h, act):
+    return h * torch.sigmoid(1.702 * h) if act == "quick_gelu" else \
+        torch.nn.functional.gelu(h)
+
+
+def mlp_case(m, d, f, act, dtype, main_path: bool) -> dict:
+    from mcm_tpu_torch.ops import _build
+    from mcm_tpu_torch.ops.mlp import fused_mlp, fused_mlp_reference
+    gen = torch.Generator(device="cuda").manual_seed(m + d)
+
+    def randn(shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+    x, w1, b1 = randn((m, d)), randn((d, f), d ** -0.5), randn((f,), 0.1,
+                                                              torch.float32)
+    w2, b2 = randn((f, d), f ** -0.5), randn((d,), 0.1, torch.float32)
+    got = fused_mlp(x, w1, b1, w2, b2, act)
+    want = fused_mlp_reference(x, w1, b1, w2, b2, act)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = MLP_TOL[dtype]
+    check(math.isfinite(err) and err <= tol,
+          f"fused_mlp {(m, d, f, act, str(dtype))}: max |kernel - plain| "
+          f"{err} > {tol}")
+    b1l, b2l = b1.to(dtype), b2.to(dtype)
+    nbytes = (2 * m * d + 2 * d * f) * x.element_size() + (f + d) * 4
+    bms, by = bound(nbytes, 4.0 * m * d * f, dtype)
+    tc = _build.load("fused_mlp").mcm_fused_mlp_tensor_cores(
+        d, f, int(dtype == torch.bfloat16))
+    return {"kernel": "fused_mlp", "case": [m, d, f, act, str(dtype)],
+            "main_path_shape": main_path, "tensor_cores": bool(tc),
+            "max_abs_err": err, "tol": tol,
+            "kernel_ms": cuda_ms(lambda: fused_mlp(x, w1, b1, w2, b2, act),
+                                 iters=10),
+            "plain_ms": cuda_ms(
+                lambda: fused_mlp_reference(x, w1, b1, w2, b2, act), iters=5),
+            "library_ms": cuda_ms(lambda: torch.addmm(
+                b2l, _act(torch.addmm(b1l, x, w1), act), w2), iters=10),
+            "bound_ms": bms, "bound_by": by, "launches_per_batch": 12}
+
+
+SPLIT_KERNELS = {"pallas_attention": "pallas", "mh_attention": "pallas_mh",
+                 "batched_attention": "pallas_batched"}
+
+
+def split_case(name, b, h, s, dh, dtype, main_path: bool) -> dict:
+    import torch.nn.functional as F
+
+    from mcm_tpu_torch.ops import attention
+    fn = getattr(attention, name)
+    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + s)
+    q, k, v = (torch.randn((b, h, s, dh), generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    got = fn(q, k, v)
+    want = attention.split_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = BSD_TOL[dtype]
+    check(math.isfinite(err) and err <= tol,
+          f"{name} {(b, h, s, dh, str(dtype))}: max |kernel - plain| "
+          f"{err} > {tol}")
+    nbytes = 4 * b * h * s * dh * q.element_size()
+    bms, by = bound(nbytes, 4.0 * b * h * s * s * dh, dtype)
+    return {"kernel": name, "attn_impl": SPLIT_KERNELS[name],
+            "case": [b, h, s, dh, str(dtype)],
+            "main_path_shape": main_path, "max_abs_err": err, "tol": tol,
+            "kernel_ms": cuda_ms(lambda: fn(q, k, v)),
+            "plain_ms": cuda_ms(
+                lambda: attention.split_attention_reference(q, k, v), iters=5),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v)),
+            "bound_ms": bms, "bound_by": by, "launches_per_batch": 12}
+
+
 def kernel_phase() -> dict:
-    """All cases; returns the main-path-shape case of each kernel."""
+    """All cases; returns the path-shape case of each kernel."""
     main = {}
     bsd_cases = [(BATCH, 197, 768, 12, torch.bfloat16, True),
                  (256, 197, 768, 12, torch.bfloat16, False),
@@ -201,6 +287,27 @@ def kernel_phase() -> dict:
                 emit(row)
                 if mp:
                     main["mcm_score"] = row
+    text_rows = 1000 * 77            # the ImageNet prompts, 77 tokens each
+    mlp_cases = [(BATCH * 197, 768, 3072, "quick_gelu", torch.bfloat16, True),
+                 (BATCH * 197, 768, 3072, "gelu", torch.bfloat16, False),
+                 (text_rows, 512, 2048, "quick_gelu", torch.bfloat16, False),
+                 (text_rows, 512, 2048, "gelu", torch.bfloat16, False),
+                 (64 * 257, 1024, 4096, "quick_gelu", torch.bfloat16, False),
+                 (16 * 197, 768, 3072, "quick_gelu", torch.float32, False)]
+    for args in mlp_cases:
+        row = mlp_case(*args)
+        emit(row)
+        if row["main_path_shape"]:
+            main["fused_mlp"] = row
+    for name in SPLIT_KERNELS:
+        for args in ((BATCH, 12, 197, 64, torch.bfloat16, True),
+                     (64, 16, 257, 64, torch.bfloat16, False),
+                     (64, 12, 50, 64, torch.bfloat16, False),
+                     (16, 12, 197, 64, torch.float32, False)):
+            row = split_case(name, *args)
+            emit(row)
+            if row["main_path_shape"]:
+                main[name] = row
     return main
 
 
@@ -359,13 +466,135 @@ def profile_batches(fn, n: int = 3) -> dict:
             "top_device_ms_per_batch": top}
 
 
-# -- 4. summary ------------------------------------------------------------------
+# -- 4. bench phase --------------------------------------------------------------
+
+_BENCH_ENV = ("MCM_BENCH_CKPT", "MCM_BENCH_BATCH", "MCM_BENCH_ATTN",
+              "MCM_BENCH_MLP", "MCM_BENCH_E2E", "MCM_BENCH_SCALES")
+
+
+def _counters() -> dict:
+    from mcm_tpu_torch.ops import attention, mcm_score, mlp
+    return {"bsd_attention": attention.bsd_attention,
+            "mcm_score": mcm_score.mcm_score, "fused_mlp": mlp.fused_mlp,
+            **{n: getattr(attention, n) for n in SPLIT_KERNELS}}
+
+
+def _run_bench(env: dict) -> tuple:
+    """One in-process ``mcm_tpu_torch.bench.main`` under ``env``, with every
+    launch count set to 0 just before and read just after."""
+    from mcm_tpu_torch import bench
+    saved = {k: os.environ.pop(k, None) for k in _BENCH_ENV}
+    os.environ.update(env)
+    try:
+        for fn in _counters().values():
+            fn.launches = 0
+        row = bench.main(device="cuda")
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in _counters().items()}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return row, launches
+
+
+def bench_phase() -> dict:
+    """The bench under each split-heads knob with the fused MLP, then with
+    default knobs.  Returns each kernel's launch count from its runs."""
+    import dataclasses
+
+    from mcm_tpu_torch import bench
+    from mcm_tpu_torch.config import CLIP_CONFIGS, Precision
+    from mcm_tpu_torch.parallel import EvalStep
+
+    layers = CLIP_CONFIGS["ViT-B/16"]().vision.layers
+
+    # fewer windows and a short wait for a quiet host: the smoke checks the
+    # path, the full bench (python -m mcm_tpu_torch.bench) measures it
+    bench.WARMUP, bench.WINDOWS, bench.ITERS_PER_WINDOW = 1, 1, 4
+    bench.QUIET_WAIT_S, bench.RETRIES = 3.0, 1
+    base = {"MCM_BENCH_CKPT": "ViT-B/16", "MCM_BENCH_BATCH": str(BATCH),
+            "MCM_BENCH_MLP": "pallas", "MCM_BENCH_E2E": "0",
+            "MCM_BENCH_SCALES": "0"}
+    path_launches = {"fused_mlp": 0}
+    knob_rows = {}
+    for name, attn in SPLIT_KERNELS.items():
+        row, launches = _run_bench(dict(base, MCM_BENCH_ATTN=attn))
+        batches = bench.WARMUP + ((row["contention_retries"]["device"] + 1)
+                                  * bench.WINDOWS * bench.ITERS_PER_WINDOW)
+        want = {n: 0 for n in launches}
+        want.update({"fused_mlp": layers * batches, name: layers * batches,
+                     "mcm_score": batches})
+        check(launches == want, f"bench with MCM_BENCH_ATTN={attn}: launches "
+              f"{launches}, want {want} for {batches} image batches")
+        path_launches["fused_mlp"] += launches["fused_mlp"]
+        path_launches[name] = launches[name]
+        knob_rows[attn] = {"img_per_sec": row["value"],
+                           "mfu_pct": row["mfu_pct"],
+                           "image_batches": batches, "launches": launches}
+
+    # each knob's features and scores on one batch against the default
+    # path's (bsd attention, unfused MLP), same card and weights
+    rng = np.random.default_rng(1)
+    cfg, step, params, text = bench.build_step("ViT-B/16", Precision.fast(),
+                                               "cuda", rng)
+    images = bench.make_dev_batches(step, BATCH, rng, n=1)[0]
+    f_d = step.features(params, images)
+    s_d = step.score(params, images, text)
+    scale = float(s_d.abs().max())
+    for attn, knob in knob_rows.items():
+        k_step = EvalStep(cfg, precision=dataclasses.replace(
+            Precision.fast(), attn_impl=attn, mlp_impl="pallas"),
+            device="cuda")
+        cos = float(torch.nn.functional.cosine_similarity(
+            k_step.features(params, images), f_d, dim=-1).min())
+        delta = float((k_step.score(params, images, text) - s_d).abs().max())
+        check(cos >= FEAT_COS_MIN, f"MCM_BENCH_ATTN={attn}: feature cosine "
+              f"{cos} < {FEAT_COS_MIN} against the default path")
+        check(delta <= SCORE_REL_TOL * scale, f"MCM_BENCH_ATTN={attn}: MCM "
+              f"delta {delta} > {SCORE_REL_TOL} x {scale}")
+        knob.update(min_feature_cosine_vs_default=cos,
+                    max_score_delta_vs_default=delta,
+                    score_tol=SCORE_REL_TOL * scale)
+    del step, params, text, images
+    emit({"phase": "bench_knobs", "model": "ViT-B/16", "batch": BATCH,
+          "mlp_impl": "pallas", "runs": knob_rows})
+
+    # default knobs at the bench's own batch, decode-included pass on
+    bench.WARMUP, bench.WINDOWS, bench.ITERS_PER_WINDOW = 2, 2, 6
+    row, launches = _run_bench({"MCM_BENCH_CKPT": "ViT-B/16",
+                                "MCM_BENCH_BATCH": str(bench.BATCH),
+                                "MCM_BENCH_E2E": "1",
+                                "MCM_BENCH_SCALES": "0"})
+    check(launches["mcm_score"] > 0
+          and launches["bsd_attention"] == layers * launches["mcm_score"]
+          and all(launches[n] == 0 for n in ("fused_mlp", *SPLIT_KERNELS)),
+          f"default bench launches {launches}: want 12 bsd per mcm, no other")
+    check(all(row[k] and row[k] > 0 for k in (
+        "value", "e2e_img_per_sec", "e2e_decode_img_per_sec",
+        "e2e_transfer_ceiling_img_per_sec")),
+        f"default bench row lacks a rate: {row}")
+    emit({"phase": "bench_default", "launches": launches, "row": row})
+    return path_launches
+
+
+# -- 5. summary ------------------------------------------------------------------
 
 KERNELS = {
     "bsd_attention": ("cuda", "mcm_tpu_torch/csrc/bsd_attention.cu",
                       "mcm_tpu/ops/attention.py:161"),
     "mcm_score": ("cuda", "mcm_tpu_torch/csrc/mcm_score.cu",
                   "mcm_tpu/ops/mcm_score.py:26"),
+    "fused_mlp": ("cuda", "mcm_tpu_torch/csrc/fused_mlp.cu",
+                  "mcm_tpu/ops/mlp.py:24"),
+    "pallas_attention": ("cuda", "mcm_tpu_torch/csrc/split_attention.cu",
+                         "mcm_tpu/ops/attention.py:52"),
+    "mh_attention": ("cuda", "mcm_tpu_torch/csrc/split_attention.cu",
+                     "mcm_tpu/ops/attention.py:67"),
+    "batched_attention": ("cuda", "mcm_tpu_torch/csrc/split_attention.cu",
+                          "mcm_tpu/ops/attention.py:112"),
 }
 
 
@@ -378,14 +607,25 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    walls = {}
+    t = time.perf_counter()
     build()
+    walls["build"] = time.perf_counter() - t
+    t = time.perf_counter()
     main_rows = kernel_phase()
+    walls["kernel"] = time.perf_counter() - t
+    t = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="mcm_chip_smoke_") as work:
         launches = slice_phase(work)
+    walls["slice"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launches.update(bench_phase())
+    walls["bench"] = time.perf_counter() - t
+    emit({"phase_wall_s": walls})
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         row = main_rows[name]
-        check(launches[name] > 0, f"{name} was not launched on the main path")
+        check(launches[name] > 0, f"{name} was not launched on its path")
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": row["max_abs_err"],
@@ -393,7 +633,7 @@ def main() -> int:
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": row["case"],
                         "status": "built; within tolerance of its plain "
-                                  "version; launched on the main path"})
+                                  "version; launched on its path"})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -139,13 +139,15 @@ class Precision:
     matmul_precision: str = "default"
     #: attention implementation for unmasked (vision) attention: "auto" —
     #: the bsd kernel on a CUDA tensor in bf16, the math path elsewhere —
-    #: or force "xla" (the math path) / "pallas_bsd" (the bsd kernel).
-    #: The other JAX names ("pallas", "pallas_mh", "pallas_batched",
-    #: "flash", "pallas_bsd_vjp") are accepted and raise until their
-    #: kernels are ported.  Masked (text-tower) calls take the math path.
+    #: or force "xla" (the math path) / "pallas_bsd" (the bsd kernel) /
+    #: "pallas" | "pallas_mh" | "pallas_batched" (the split-heads kernel
+    #: in one of its three launch shapes).  "flash" and "pallas_bsd_vjp"
+    #: are accepted and raise until they are ported; any other name takes
+    #: the math path, as in the JAX package.  Masked (text-tower) calls
+    #: take the math path.
     attn_impl: str = "auto"
-    #: MLP implementation: "auto"/"xla" (plain matmuls); "pallas" (the
-    #: fused MLP kernel) raises until it is ported.
+    #: MLP implementation: "pallas" — the fused MLP kernel, in both towers;
+    #: anything else ("auto", "xla") — plain matmuls.
     mlp_impl: str = "auto"
     #: dtype of the math path's [B, H, S, S] logits/probability tensor.
     softmax_dtype: torch.dtype = torch.float32

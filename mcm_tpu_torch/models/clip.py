@@ -15,6 +15,13 @@ plain functions on tensors.  Numerics follow the JAX package: QuickGELU,
 LayerNorm in fp32, every product accumulated in fp32
 (:func:`mcm_tpu_torch.ops.numerics.matmul_f32`), activations in
 ``precision.activation_dtype``.
+
+``precision.mlp_impl == "pallas"`` routes each layer's MLP, in both
+towers, through the fused MLP kernel (:func:`mcm_tpu_torch.ops.mlp.fused_mlp`)
+with the JAX package's casts: ``w1``/``w2`` in the activation dtype, fp32
+biases, rows flattened to ``[B·S, D]``.  It needs no weights beyond the
+tree's ``mlp.w1/b1/w2/b2``, which :func:`~mcm_tpu_torch.models.convert.from_jax_params`
+already carries.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from torch import nn
 
 from mcm_tpu_torch.config import Precision, TextConfig, VisionConfig
 from mcm_tpu_torch.ops.attention import encoder_attention
+from mcm_tpu_torch.ops.mlp import fused_mlp
 from mcm_tpu_torch.ops.numerics import matmul_f32, weak_scalar
 
 #: leaves the forward casts to the compute dtype, so they are stored in it;
@@ -102,10 +110,6 @@ def transformer_block(x: torch.Tensor, layer: Dict[str, Any], *, heads: int,
                       eps: float, mask: Optional[torch.Tensor],
                       precision: Precision) -> torch.Tensor:
     """One pre-LN CLIP encoder layer: x += attn(ln1(x)); x += mlp(ln2(x))."""
-    if precision.mlp_impl == "pallas":
-        raise NotImplementedError(
-            "mlp_impl='pallas' (fused MLP kernel) is not ported yet: "
-            "ROADMAP.md Queue 2, item 3 (fused_mlp)")
     attn, mlp = layer["attn"], layer["mlp"]
     h = layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"], eps)
     q = _dense(h, attn["wq"], attn["bq"], precision)
@@ -116,6 +120,12 @@ def transformer_block(x: torch.Tensor, layer: Dict[str, Any], *, heads: int,
     x = x + _dense(a, attn["wo"], attn["bo"], precision)
 
     h = layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"], eps)
+    if precision.mlp_impl == "pallas":
+        cdt = precision.activation_dtype
+        b, s, d = h.shape
+        h = fused_mlp(h.reshape(b * s, d), mlp["w1"].to(cdt), mlp["b1"],
+                      mlp["w2"].to(cdt), mlp["b2"]).reshape(b, s, d)
+        return x + h
     h = quick_gelu(_dense(h, mlp["w1"], mlp["b1"], precision))
     return x + _dense(h, mlp["w2"], mlp["b2"], precision)
 

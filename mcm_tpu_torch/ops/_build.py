@@ -26,7 +26,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "mcm_tpu_torch")
 
 #: every kernel source of the port
-SOURCES = ("bsd_attention", "mcm_score")
+SOURCES = ("bsd_attention", "mcm_score", "fused_mlp", "split_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -122,5 +122,21 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mcm_score_smem_bytes.restype = ctypes.c_size_t
         lib.mcm_score_error_string.argtypes = [i]
         lib.mcm_score_error_string.restype = ctypes.c_char_p
+    elif name == "fused_mlp":
+        lib.mcm_fused_mlp.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.mcm_fused_mlp.restype = i
+        lib.mcm_fused_mlp_tensor_cores.argtypes = [i, i, i]
+        lib.mcm_fused_mlp_tensor_cores.restype = i
+        lib.mcm_fused_mlp_smem_bytes.argtypes = [i, i, i]
+        lib.mcm_fused_mlp_smem_bytes.restype = ctypes.c_size_t
+        lib.mcm_fused_mlp_error_string.argtypes = [i]
+        lib.mcm_fused_mlp_error_string.restype = ctypes.c_char_p
+    elif name == "split_attention":
+        lib.mcm_split_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.mcm_split_attention.restype = i
+        lib.mcm_split_attention_smem_bytes.argtypes = [i, i, i]
+        lib.mcm_split_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.mcm_split_attention_error_string.argtypes = [i]
+        lib.mcm_split_attention_error_string.restype = ctypes.c_char_p
     else:
         raise ValueError(f"unknown kernel source {name!r}")

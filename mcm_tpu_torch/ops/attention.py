@@ -1,4 +1,4 @@
-"""Encoder attention: the math path, the bsd kernel, and the routing.
+"""Encoder attention: the math path, the kernels, and the routing.
 
 * :func:`_math_attention` holds the numerics of the JAX package's
   ``_xla_attention`` on pre-split ``[B, H, S, Dh]`` heads, including fast
@@ -10,9 +10,15 @@
   ``_bsd_attention_kernel``: ``[B, S, D]`` projections straight to a
   ``[B, S, D]`` result, no head transpose stored.  On a CPU tensor it runs
   :func:`bsd_attention_reference`, its plain version.
+* :func:`pallas_attention`, :func:`mh_attention` and
+  :func:`batched_attention` are the three launch shapes of the
+  hand-written split-heads kernel (``csrc/split_attention.cu``) that
+  replaces ``_attention_kernel``, ``_mh_attention_kernel`` and
+  ``_batched_attention_kernel`` on ``[B, H, S, Dh]`` heads.  On a CPU
+  tensor each runs :func:`split_attention_reference`, their plain version.
 * :func:`encoder_attention` routes as the JAX package does; "auto" means
-  the kernel for an unmasked bf16 call on a CUDA tensor whose shapes it
-  takes, and the math path for everything else.
+  the bsd kernel for an unmasked bf16 call on a CUDA tensor whose shapes
+  it takes, and the math path for everything else.
 """
 
 from __future__ import annotations
@@ -26,9 +32,6 @@ from mcm_tpu_torch.ops.numerics import matmul_f32, weak_scalar
 
 #: attn_impl names whose kernels are not ported yet → ROADMAP.md item
 _UNPORTED = {
-    "pallas_batched": "Queue 2, item 4 (_pallas_batched_attention)",
-    "pallas_mh": "Queue 2, item 5 (_pallas_mh_attention)",
-    "pallas": "Queue 2, item 6 (_pallas_attention)",
     "flash": "Queue 2, item 7 (_flash_attention)",
 }
 
@@ -122,6 +125,95 @@ def bsd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 bsd_attention.launches = 0
 
 
+def split_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split-heads kernel on ``[B, H, S, Dh]``, same
+    numerics as the bsd kernel's plain version: q scaled in fp32 and
+    rounded to the input dtype; fp32 logits, max, exp, sum and division;
+    probabilities rounded to the input dtype; fp32 PV; output cast."""
+    dt = q.dtype
+    qs = (q.float() * (q.shape[-1] ** -0.5)).to(dt).float()
+    logits = qs @ k.float().transpose(-1, -2)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(dt).float()
+    return (p @ v.float()).to(dt)
+
+
+def _split_attention(fn, mode: int, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, block: int) -> torch.Tensor:
+    """Launch ``csrc/split_attention.cu`` in launch shape ``mode`` for the
+    wrapper ``fn`` (whose name and launch count it uses)."""
+    name = fn.__name__
+    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
+        raise ValueError(f"{name} needs equal [B, H, S, Dh] q/k/v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _BSD_DTYPES:
+        raise ValueError(f"{name} takes float32 or bfloat16 q/k/v, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if block <= 0:
+        raise ValueError(f"{name}: the block must be positive, got {block}")
+    b, h, s, dh = q.shape
+    if dh < 1 or dh & (dh - 1) or dh > 128:
+        raise ValueError(f"{name} takes a head dim that is a power of two "
+                         f"up to 128, got Dh={dh}")
+    if q.device.type == "cpu":
+        return split_attention_reference(q, k, v)
+    if not (q.is_cuda and q.device == k.device == v.device):
+        raise ValueError(f"{name} needs q/k/v on one CUDA device or the CPU, "
+                         f"got {q.device}, {k.device}, {v.device}")
+    # the heads of encoder_attention's split are strided views: the kernel
+    # reads a dense [B, H, S, Dh] layout, so materialise it (as JAX does)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if any(t.data_ptr() % 8 for t in (q, k, v)):
+        raise ValueError(f"{name} needs 8-byte aligned q/k/v (the kernel "
+                         f"stages them in 8-byte vectors)")
+    from mcm_tpu_torch.ops import _build
+    lib = _build.load("split_attention")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.mcm_split_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     out.data_ptr(), b, h, s, dh, mode,
+                                     block, _BSD_DTYPES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed at (B, H, S, Dh)={(b, h, s, dh)}, "
+            f"block={block}, {q.dtype}: "
+            f"{lib.mcm_split_attention_error_string(rc).decode()}")
+    fn.launches += 1
+    return out
+
+
+def pallas_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     block_q: int = 256) -> torch.Tensor:
+    """``attn_impl="pallas"``: one block per (b·h) pair and tile of
+    ``block_q`` query rows (``_pallas_attention``)."""
+    return _split_attention(pallas_attention, 0, q, k, v, block_q)
+
+
+def mh_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 block_h: int = 6) -> torch.Tensor:
+    """``attn_impl="pallas_mh"``: one block per (image, group of
+    ``block_h`` heads), looping over the group (``_pallas_mh_attention``)."""
+    return _split_attention(mh_attention, 1, q, k, v, block_h)
+
+
+def batched_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      block_bh: int = 16) -> torch.Tensor:
+    """``attn_impl="pallas_batched"``: one block per group of ``block_bh``
+    (b·h) pairs (``_pallas_batched_attention``)."""
+    return _split_attention(batched_attention, 2, q, k, v, block_bh)
+
+
+pallas_attention.launches = 0
+mh_attention.launches = 0
+batched_attention.launches = 0
+
+#: attn_impl name → split-heads kernel wrapper
+_SPLIT_KERNELS = {"pallas": pallas_attention, "pallas_mh": mh_attention,
+                  "pallas_batched": batched_attention}
+
+
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       heads: int, mask: Optional[torch.Tensor],
                       precision: Precision) -> torch.Tensor:
@@ -163,14 +255,16 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     precision: Precision = Precision.fast(),
                     impl: Optional[str] = None) -> torch.Tensor:
     """Multi-head attention ``[B, H, S, Dh]`` → ``[B, H, S, Dh]`` (pre-split
-    heads).  ``impl``: "xla" or None → the math path; the JAX package's
-    split-heads kernels ("flash", "pallas", "pallas_mh", "pallas_batched")
-    raise until they are ported.  Masked calls always take the math path,
-    as in the JAX package."""
-    if impl in (None, "xla") or mask is not None:
+    heads).  ``impl``: "pallas" | "pallas_mh" | "pallas_batched" → the
+    split-heads kernel in that launch shape; "flash" raises until it is
+    ported; "xla", None or any other name → the math path, as in the JAX
+    package.  Masked calls always take the math path."""
+    if mask is not None:
         return _math_attention(q, k, v, mask, precision)
+    if impl in _SPLIT_KERNELS:
+        return _SPLIT_KERNELS[impl](q, k, v)
     if impl in _UNPORTED:
         raise NotImplementedError(
             f"attn_impl={impl!r} is not ported yet: ROADMAP.md "
             f"{_UNPORTED[impl]}")
-    raise ValueError(f"unknown attn_impl {impl!r}")
+    return _math_attention(q, k, v, mask, precision)

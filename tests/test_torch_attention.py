@@ -1,6 +1,7 @@
-"""The port's attention against the JAX package's on the CPU: the bsd
-kernel's plain version against the Pallas kernel in interpret mode, the
-math path against ``_xla_attention``, and the routing."""
+"""The port's attention against the JAX package's on the CPU: the bsd and
+split-heads kernels' plain versions against the Pallas kernels in
+interpret mode, the math path against ``_xla_attention``, and the
+routing."""
 
 import dataclasses
 
@@ -12,7 +13,10 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from mcm_tpu.config import Precision as JPrecision
-from mcm_tpu.ops.attention import _pallas_bsd_attention, _xla_attention
+from mcm_tpu.ops import attention as jattention
+from mcm_tpu.ops.attention import (_pallas_attention,
+                                   _pallas_batched_attention,
+                                   _pallas_bsd_attention, _xla_attention)
 
 from mcm_tpu_torch.config import Precision
 from mcm_tpu_torch.ops import attention
@@ -134,8 +138,7 @@ def test_forced_bsd_bad_shapes_raise(d, heads):
         attention.bsd_attention(q, q, q, heads)
 
 
-@pytest.mark.parametrize("impl", ["pallas", "pallas_mh", "pallas_batched",
-                                  "flash", "pallas_bsd_vjp"])
+@pytest.mark.parametrize("impl", ["flash", "pallas_bsd_vjp"])
 def test_unported_attn_impls_raise(impl):
     q = torch.zeros((1, 8, 128))
     prec = dataclasses.replace(Precision.parity(), attn_impl=impl)
@@ -147,3 +150,161 @@ def test_unported_attn_impls_raise(impl):
                                       mask=torch.zeros((1, 1, 8, 8)),
                                       precision=prec)
     assert out.shape == q.shape
+
+
+# -- split-heads kernels ------------------------------------------------------
+
+def _torch(arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 197, 64), (1, 2, 50, 32),
+                                   (2, 3, 257, 64)])
+def test_split_plain_matches_pallas_kernel(rng, shape):
+    """fp32 at 2e-5, as ``test_pallas_attention_matches_xla`` holds the
+    kernel (S = 257 runs two query tiles of 256)."""
+    q, k, v = _arrays(rng, shape)
+    with pltpu.force_tpu_interpret_mode():
+        want = _pallas_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v))
+    got = attention.split_attention_reference(*_torch((q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape,block_bh", [((2, 4, 197, 64), 4),
+                                            ((2, 3, 50, 32), 4),
+                                            ((1, 2, 120, 64), 2)])
+def test_split_plain_matches_pallas_batched_kernel(rng, shape, block_bh):
+    """fp32 at 2e-5, including the (b·h % block_bh != 0) tail group (2·3 =
+    6 pairs in blocks of 4)."""
+    q, k, v = _arrays(rng, shape)
+    with pltpu.force_tpu_interpret_mode():
+        want = _pallas_batched_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), block_bh=block_bh)
+    got = attention.split_attention_reference(*_torch((q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("jax_kernel", ["pallas", "pallas_batched"])
+def test_split_plain_matches_pallas_kernels_bf16(rng, jax_kernel):
+    """bf16 inputs: both round q·scale and p to bf16; outputs within one
+    bf16 ulp at |x| ≤ 4 (1.6e-2)."""
+    q, k, v = _arrays(rng, (2, 2, 197, 64))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    with pltpu.force_tpu_interpret_mode():
+        want = (_pallas_attention(jq, jk, jv) if jax_kernel == "pallas"
+                else _pallas_batched_attention(jq, jk, jv, block_bh=4))
+    got = attention.split_attention_reference(*_torch((q, k, v),
+                                                      torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=1.6e-2, atol=1.6e-2)
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 197, 64), (1, 16, 257, 64)])
+def test_split_plain_matches_xla_for_pallas_mh(rng, shape):
+    """``_pallas_mh_attention`` cannot be run here: its in-kernel
+    ``fori_loop`` hangs Pallas interpret mode (``tests/test_ops.py`` skips
+    it off-TPU for that reason).  Its TPU kernel has the numerics of
+    ``_pallas_attention``, so the plain version that the ``pallas_mh``
+    launch shape is held to is held to ``_xla_attention`` in parity mode,
+    at the 2e-5 that ``tests/test_ops.py`` holds the split-heads kernels
+    to.  H = 16 is L/14's head count, whose tail group the kernel clamps."""
+    q, k, v = _arrays(rng, shape)
+    want = _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          None, JPrecision.parity())
+    got = attention.split_attention_reference(*_torch((q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+_SPLIT_WRAPPERS = {"pallas": "pallas_attention", "pallas_mh": "mh_attention",
+                   "pallas_batched": "batched_attention"}
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_mh", "pallas_batched"])
+def test_split_impls_route_to_plain_version_on_cpu(rng, impl):
+    """On CPU tensors each name takes its wrapper, which runs the plain
+    version with no launch; the result is the split heads' reference."""
+    b, s, d, heads = 2, 17, 128, 4
+    q, k, v = _torch(_arrays(rng, (b, s, d)))
+    wrapper = getattr(attention, _SPLIT_WRAPPERS[impl])
+    before = {n: getattr(attention, n).launches
+              for n in _SPLIT_WRAPPERS.values()}
+    prec = dataclasses.replace(Precision.parity(), attn_impl=impl)
+    got = attention.encoder_attention(q, k, v, heads=heads, mask=None,
+                                      precision=prec)
+    assert {n: getattr(attention, n).launches
+            for n in _SPLIT_WRAPPERS.values()} == before
+    split = [t.reshape(b, s, heads, d // heads).transpose(1, 2)
+             for t in (q, k, v)]
+    want = attention.split_attention_reference(*split)
+    torch.testing.assert_close(got, want.transpose(1, 2).reshape(b, s, d),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(wrapper(*split), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_mh", "pallas_batched"])
+def test_split_impls_masked_take_math_path(rng, impl):
+    """A masked (text-tower) call takes the math path, as in JAX: the same
+    result as ``attn_impl="xla"`` and as the JAX package's routing."""
+    b, s, d, heads = 2, 16, 128, 2
+    q, k, v = _arrays(rng, (b, s, d))
+    mask = np.broadcast_to(np.triu(np.full((s, s), -1e9, np.float32), 1),
+                           (b, 1, s, s)).copy()
+    prec = dataclasses.replace(Precision.parity(), attn_impl=impl)
+    got = attention.encoder_attention(*_torch((q, k, v)), heads=heads,
+                                      mask=torch.from_numpy(mask),
+                                      precision=prec)
+    want = attention.encoder_attention(
+        *_torch((q, k, v)), heads=heads, mask=torch.from_numpy(mask),
+        precision=Precision.parity())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    jwant = jattention.encoder_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), heads=heads,
+        mask=jnp.asarray(mask),
+        precision=dataclasses.replace(JPrecision.parity(), attn_impl=impl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["pallas_attention", "mh_attention",
+                                  "batched_attention"])
+def test_split_wrappers_refuse_what_the_kernel_does_not_take(name):
+    fn = getattr(attention, name)
+    q = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(ValueError, match=r"\[B, H, S, Dh\]"):
+        fn(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fn(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="power of two"):
+        fn(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError, match="positive"):
+        fn(q, q, q, 0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_unknown_attn_impl_takes_math_path_as_jax(rng, masked):
+    """An unknown name computes the math path in both packages (JAX:
+    ``fused_attention`` falls through to ``_xla_attention``)."""
+    b, s, d, heads = 2, 16, 128, 4
+    q, k, v = _arrays(rng, (b, s, d))
+    mask = None
+    if masked:
+        mask = np.broadcast_to(np.triu(np.full((s, s), -1e9, np.float32), 1),
+                               (b, 1, s, s)).copy()
+    want = jattention.encoder_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), heads=heads,
+        mask=None if mask is None else jnp.asarray(mask),
+        precision=dataclasses.replace(JPrecision.parity(),
+                                      attn_impl="no_such_impl"))
+    got = attention.encoder_attention(
+        *_torch((q, k, v)), heads=heads,
+        mask=None if mask is None else torch.from_numpy(mask),
+        precision=dataclasses.replace(Precision.parity(),
+                                      attn_impl="no_such_impl"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
