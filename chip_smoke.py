@@ -10,6 +10,9 @@
    at its paths' shapes, with the tolerance stated; CUDA-event times of
    the kernel, the plain version and one PyTorch library call for the
    same function, beside the least time the card could take (the bound).
+   The flash kernel includes an S > 512 case (JAX's multi-block branch);
+   each bsd probe mode is held against its plain version; the packed bsd
+   launch (``bsd_fused``) must be bit-identical to the split one.
 3. Slice phase: the eval CLI (``mcm_tpu_torch.cli.eval_ood``) at the full
    width and depth of ViT-B/16, random weights from seed 0, on a synthetic
    JPEG tree made from a seed: asserts that every kernel of the path was
@@ -18,12 +21,17 @@
    through the math paths and bounds the difference.
 4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
-   turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh`` and
-   ``pallas_batched``: asserts 12 fused-MLP and 12 split-heads launches
-   per image batch (no bsd, one mcm), and holds each setting's features
-   on one batch against the default path's.  Then the bench once with
-   default knobs at B = 512 with the decode-included pass, and its row.
-5. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line, the
+   turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
+   ``pallas_batched`` and ``flash``: asserts 12 fused-MLP and 12 launches
+   of the knob's attention kernel per image batch (no bsd, one mcm), and
+   holds each setting's features on one batch against the default path's.
+   Then the bench once with default knobs at B = 512 with the
+   decode-included pass, and its row.
+5. Tools phase: the three attention tools (``mcm_tpu_torch.tools``
+   ``bsd_probe``, ``qkv_probe``, ``attn_shootout``) in-process at their
+   own shapes (B = 512) with a shorter chain: no row may fail, and every
+   kernel they reach must be launched.
+6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line, the
    card line again and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without a card.  Imports nothing of JAX
@@ -63,6 +71,9 @@ BSD_TOL = {torch.bfloat16: 3.2e-2, torch.float32: 2e-5}
 # test_fused_mlp_matches_reference tolerance)
 MLP_TOL = {torch.bfloat16: 3.2e-2, torch.float32: 2e-4}
 MCM_TOL_REL = 1e-4   # of the largest |score|; var at T = 100 is ~1e-13
+# bsd probe modes: as bsd, except nosoftmax, whose outputs (|x| up to ~100
+# at B = 128) are held to one bf16 ulp of the output's largest |x|
+PROBE_LIBRARY = ("full", "bf16sm", "deferdiv")   # modes SDPA computes
 # slice: kernel path vs math path (bf16 softmax, per-op roundings) on one
 # batch — the cosine bound the JAX package holds bf16 features to, and
 # score deltas below 1% of the largest score
@@ -234,18 +245,24 @@ def mlp_case(m, d, f, act, dtype, main_path: bool) -> dict:
 
 SPLIT_KERNELS = {"pallas_attention": "pallas", "mh_attention": "pallas_mh",
                  "batched_attention": "pallas_batched"}
+#: the bench's attention knob runs: wrapper → MCM_BENCH_ATTN
+ATTN_KNOBS = dict(SPLIT_KERNELS, flash_attention="flash")
 
 
-def split_case(name, b, h, s, dh, dtype, main_path: bool) -> dict:
+def heads_case(name, b, h, s, dh, dtype, main_path: bool) -> dict:
+    """A kernel on [B, H, S, Dh] heads (split-heads or flash) against its
+    plain version."""
     import torch.nn.functional as F
 
     from mcm_tpu_torch.ops import attention
     fn = getattr(attention, name)
+    plain = (attention.flash_attention_reference if name == "flash_attention"
+             else attention.split_attention_reference)
     gen = torch.Generator(device="cuda").manual_seed(b * 1000 + s)
     q, k, v = (torch.randn((b, h, s, dh), generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
     got = fn(q, k, v)
-    want = attention.split_attention_reference(q, k, v)
+    want = plain(q, k, v)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = BSD_TOL[dtype]
@@ -254,15 +271,84 @@ def split_case(name, b, h, s, dh, dtype, main_path: bool) -> dict:
           f"{err} > {tol}")
     nbytes = 4 * b * h * s * dh * q.element_size()
     bms, by = bound(nbytes, 4.0 * b * h * s * s * dh, dtype)
-    return {"kernel": name, "attn_impl": SPLIT_KERNELS[name],
+    return {"kernel": name, "attn_impl": ATTN_KNOBS[name],
             "case": [b, h, s, dh, str(dtype)],
             "main_path_shape": main_path, "max_abs_err": err, "tol": tol,
             "kernel_ms": cuda_ms(lambda: fn(q, k, v)),
-            "plain_ms": cuda_ms(
-                lambda: attention.split_attention_reference(q, k, v), iters=5),
+            "plain_ms": cuda_ms(lambda: plain(q, k, v), iters=5),
             "library_ms": cuda_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v)),
             "bound_ms": bms, "bound_by": by, "launches_per_batch": 12}
+
+
+def probe_case(b, s, d, heads, mode) -> dict:
+    """One ``bsd_probe`` mode against its plain version at bf16."""
+    import torch.nn.functional as F
+
+    from mcm_tpu_torch.tools import bsd_probe
+    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + s)
+    q, k, v = (torch.randn((b, s, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    got = bsd_probe.probe(q, k, v, mode)
+    want = bsd_probe.probe_reference(q, k, v, mode)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = BSD_TOL[torch.bfloat16]
+    if mode == "nosoftmax":
+        tol = 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
+    check(math.isfinite(err) and err <= tol,
+          f"bsd_probe {mode} {(b, s, d, heads)}: max |kernel - plain| "
+          f"{err} > {tol}")
+    dh = d // heads
+    qh, kh, vh = (t.view(b, s, heads, dh).transpose(1, 2) for t in (q, k, v))
+    bms, by = bound(4 * b * s * d * 2, 4.0 * b * s * s * d, torch.bfloat16)
+    library = None
+    if mode in PROBE_LIBRARY:
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    return {"kernel": "bsd_probe", "mode": mode, "case": [b, s, d, heads,
+                                                          "torch.bfloat16"],
+            "max_abs_err": err, "tol": tol,
+            "kernel_ms": cuda_ms(lambda: bsd_probe.probe(q, k, v, mode)),
+            "plain_ms": cuda_ms(
+                lambda: bsd_probe.probe_reference(q, k, v, mode), iters=5),
+            "library_ms": library, "bound_ms": bms, "bound_by": by}
+
+
+def packed_case(b, s, d, heads) -> dict:
+    """``bsd_fused`` on one packed [B, S, 3D] projection: bit-identical to
+    ``bsd_attention`` on its three slices (the same kernel on the same
+    values), and within tolerance of its plain version."""
+    import torch.nn.functional as F
+
+    from mcm_tpu_torch.ops.attention import bsd_attention
+    from mcm_tpu_torch.tools import qkv_probe
+    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + s + 3)
+    qkv = torch.randn((b, s, 3 * d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    got = qkv_probe.bsd_fused(qkv, d, heads)
+    split = bsd_attention(*(t.contiguous() for t in qkv.split(d, dim=-1)),
+                          heads)
+    want = qkv_probe.bsd_fused_reference(qkv, d, heads)
+    torch.cuda.synchronize()
+    check(torch.equal(got, split), "bsd_fused is not bit-identical to "
+          "bsd_attention on the packed projection's slices")
+    err = float((got.float() - want.float()).abs().max())
+    tol = BSD_TOL[torch.bfloat16]
+    check(math.isfinite(err) and err <= tol,
+          f"bsd_fused {(b, s, d, heads)}: max |kernel - plain| {err} > {tol}")
+    dh = d // heads
+    qh, kh, vh = (t.view(b, s, heads, dh).transpose(1, 2)
+                  for t in qkv.split(d, dim=-1))
+    bms, by = bound(4 * b * s * d * 2, 4.0 * b * s * s * d, torch.bfloat16)
+    return {"kernel": "bsd_attention_packed", "case": [b, s, d, heads,
+                                                       "torch.bfloat16"],
+            "bit_identical_to_split": True, "max_abs_err": err, "tol": tol,
+            "kernel_ms": cuda_ms(lambda: qkv_probe.bsd_fused(qkv, d, heads)),
+            "plain_ms": cuda_ms(
+                lambda: qkv_probe.bsd_fused_reference(qkv, d, heads), iters=5),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+            "bound_ms": bms, "bound_by": by}
 
 
 def kernel_phase() -> dict:
@@ -299,15 +385,27 @@ def kernel_phase() -> dict:
         emit(row)
         if row["main_path_shape"]:
             main["fused_mlp"] = row
-    for name in SPLIT_KERNELS:
+    for name in ATTN_KNOBS:
+        # flash also runs S = 600, which JAX pads past 512 (its block loop)
+        extra = ((2, 4, 600, 64, torch.float32, False),) \
+            if name == "flash_attention" else ()
         for args in ((BATCH, 12, 197, 64, torch.bfloat16, True),
                      (64, 16, 257, 64, torch.bfloat16, False),
                      (64, 12, 50, 64, torch.bfloat16, False),
-                     (16, 12, 197, 64, torch.float32, False)):
-            row = split_case(name, *args)
+                     (16, 12, 197, 64, torch.float32, False)) + extra:
+            row = heads_case(name, *args)
             emit(row)
             if row["main_path_shape"]:
                 main[name] = row
+    from mcm_tpu_torch.tools.bsd_probe import MODES
+    modes = []
+    for mode in MODES:
+        row = probe_case(BATCH, 197, 768, 12, mode)
+        emit(row)
+        modes.append(row)
+    main["bsd_probe"] = dict(modes[0], modes=modes)
+    main["bsd_attention_packed"] = packed_case(BATCH, 197, 768, 12)
+    emit(main["bsd_attention_packed"])
     return main
 
 
@@ -476,7 +574,7 @@ def _counters() -> dict:
     from mcm_tpu_torch.ops import attention, mcm_score, mlp
     return {"bsd_attention": attention.bsd_attention,
             "mcm_score": mcm_score.mcm_score, "fused_mlp": mlp.fused_mlp,
-            **{n: getattr(attention, n) for n in SPLIT_KERNELS}}
+            **{n: getattr(attention, n) for n in ATTN_KNOBS}}
 
 
 def _run_bench(env: dict) -> tuple:
@@ -501,8 +599,9 @@ def _run_bench(env: dict) -> tuple:
 
 
 def bench_phase() -> dict:
-    """The bench under each split-heads knob with the fused MLP, then with
-    default knobs.  Returns each kernel's launch count from its runs."""
+    """The bench under each attention-kernel knob with the fused MLP, then
+    with default knobs.  Returns each kernel's launch count from its
+    runs."""
     import dataclasses
 
     from mcm_tpu_torch import bench
@@ -520,7 +619,7 @@ def bench_phase() -> dict:
             "MCM_BENCH_SCALES": "0"}
     path_launches = {"fused_mlp": 0}
     knob_rows = {}
-    for name, attn in SPLIT_KERNELS.items():
+    for name, attn in ATTN_KNOBS.items():
         row, launches = _run_bench(dict(base, MCM_BENCH_ATTN=attn))
         batches = bench.WARMUP + ((row["contention_retries"]["device"] + 1)
                                   * bench.WINDOWS * bench.ITERS_PER_WINDOW)
@@ -570,7 +669,7 @@ def bench_phase() -> dict:
                                 "MCM_BENCH_SCALES": "0"})
     check(launches["mcm_score"] > 0
           and launches["bsd_attention"] == layers * launches["mcm_score"]
-          and all(launches[n] == 0 for n in ("fused_mlp", *SPLIT_KERNELS)),
+          and all(launches[n] == 0 for n in ("fused_mlp", *ATTN_KNOBS)),
           f"default bench launches {launches}: want 12 bsd per mcm, no other")
     check(all(row[k] and row[k] > 0 for k in (
         "value", "e2e_img_per_sec", "e2e_decode_img_per_sec",
@@ -580,7 +679,40 @@ def bench_phase() -> dict:
     return path_launches
 
 
-# -- 5. summary ------------------------------------------------------------------
+# -- 5. tools phase --------------------------------------------------------------
+
+def tools_phase() -> dict:
+    """The three attention tools at their own shapes with a chain of 10,
+    best of 2: no row may fail and every kernel they reach must launch.
+    Returns the launch counts of the two kernels only the tools reach."""
+    from mcm_tpu_torch.ops import attention
+    from mcm_tpu_torch.tools import _timing, attn_shootout, bsd_probe, qkv_probe
+    _timing.CHAIN, _timing.OUTER = 10, 2
+    reached = {"bsd_probe": [bsd_probe.probe],
+               "qkv_probe": [attention.bsd_attention, qkv_probe.bsd_fused],
+               "attn_shootout": [attention.flash_attention,
+                                 *(getattr(attention, n) for n in SPLIT_KERNELS)]}
+    out = {}
+    for tool in (bsd_probe, qkv_probe, attn_shootout):
+        name = tool.__name__.rsplit(".", 1)[1]
+        for fn in reached[name]:
+            fn.launches = 0
+        rows = tool.main(device="cuda")
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in reached[name]}
+        check(not _timing.failed(rows), f"{name}: rows failed: "
+              f"{ {r: rows[r] for r in _timing.failed(rows)} }")
+        check(all(counts.values()), f"{name}: a kernel was not launched: "
+              f"{counts}")
+        out[name] = {"ms": {r: v * 1e3 for r, v in rows.items()},
+                     "launches": counts}
+    emit({"phase": "tools", "chain": _timing.CHAIN, "outer": _timing.OUTER,
+          "tools": out})
+    return {"bsd_probe": out["bsd_probe"]["launches"]["probe"],
+            "bsd_attention_packed": out["qkv_probe"]["launches"]["bsd_fused"]}
+
+
+# -- 6. summary ------------------------------------------------------------------
 
 KERNELS = {
     "bsd_attention": ("cuda", "mcm_tpu_torch/csrc/bsd_attention.cu",
@@ -595,6 +727,12 @@ KERNELS = {
                      "mcm_tpu/ops/attention.py:67"),
     "batched_attention": ("cuda", "mcm_tpu_torch/csrc/split_attention.cu",
                           "mcm_tpu/ops/attention.py:112"),
+    "flash_attention": ("cuda", "mcm_tpu_torch/csrc/flash_attention.cu",
+                        "mcm_tpu/ops/attention.py:263"),
+    "bsd_probe": ("cuda", "mcm_tpu_torch/csrc/bsd_probe.cu",
+                  "tools/bsd_probe.py:92"),
+    "bsd_attention_packed": ("cuda", "mcm_tpu_torch/csrc/bsd_attention.cu",
+                             "tools/qkv_probe.py:93"),
 }
 
 
@@ -621,19 +759,27 @@ def main() -> int:
     t = time.perf_counter()
     launches.update(bench_phase())
     walls["bench"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launches.update(tools_phase())
+    walls["tools"] = time.perf_counter() - t
     emit({"phase_wall_s": walls})
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         row = main_rows[name]
         check(launches[name] > 0, f"{name} was not launched on its path")
-        kernels.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": row["max_abs_err"],
-                        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "shape": row["case"],
-                        "status": "built; within tolerance of its plain "
-                                  "version; launched on its path"})
+        entry = {"name": name, "route": route, "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": row["max_abs_err"],
+                 "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"], "shape": row["case"],
+                 "status": "built; within tolerance of its plain "
+                           "version; launched on its path"}
+        if "modes" in row:
+            entry["modes"] = [{k: m[k] for k in (
+                "mode", "max_abs_err", "tol", "kernel_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")} for m in row["modes"]]
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

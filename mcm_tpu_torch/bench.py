@@ -32,9 +32,8 @@ Prints ONE JSON line; headline keys:
 
 Knobs (environment): MCM_BENCH_CKPT=ViT-B/32|ViT-B/16|ViT-L/14,
 MCM_BENCH_BATCH=N (the headline and MFU stay defined for B/16 at 512),
-MCM_BENCH_ATTN=pallas|pallas_mh|pallas_batched|xla|... (``flash`` raises:
-ROADMAP.md Queue 2, item 7), MCM_BENCH_MLP=pallas|xla, MCM_BENCH_E2E=0,
-MCM_BENCH_SCALES=0.
+MCM_BENCH_ATTN=pallas|pallas_mh|pallas_batched|flash|xla|...,
+MCM_BENCH_MLP=pallas|xla, MCM_BENCH_E2E=0, MCM_BENCH_SCALES=0.
 """
 
 from __future__ import annotations

@@ -141,10 +141,10 @@ class Precision:
     #: the bsd kernel on a CUDA tensor in bf16, the math path elsewhere —
     #: or force "xla" (the math path) / "pallas_bsd" (the bsd kernel) /
     #: "pallas" | "pallas_mh" | "pallas_batched" (the split-heads kernel
-    #: in one of its three launch shapes).  "flash" and "pallas_bsd_vjp"
-    #: are accepted and raise until they are ported; any other name takes
-    #: the math path, as in the JAX package.  Masked (text-tower) calls
-    #: take the math path.
+    #: in one of its three launch shapes) / "flash" (the flash kernel).
+    #: "pallas_bsd_vjp" is accepted and raises until training is ported;
+    #: any other name takes the math path, as in the JAX package.  Masked
+    #: (text-tower) calls take the math path.
     attn_impl: str = "auto"
     #: MLP implementation: "pallas" — the fused MLP kernel, in both towers;
     #: anything else ("auto", "xla") — plain matmuls.

@@ -42,78 +42,9 @@
 // names, so it is kept.
 // Built without --use_fast_math: expf and the division are IEEE.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <int N> struct RawVec;
-template <> struct RawVec<8> { using type = uint2; };
-template <> struct RawVec<4> { using type = uint32_t; };
-template <> struct RawVec<2> { using type = uint16_t; };
-
-// N consecutive elements at p (aligned to N elements) as fp32.
-template <typename T, int N> __device__ __forceinline__ void load_f32(const T* p, float* out);
-template <> __device__ __forceinline__ void load_f32<float, 2>(const float* p, float* out) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  out[0] = __uint_as_float(r.x);
-  out[1] = __uint_as_float(r.y);
-}
-template <> __device__ __forceinline__ void load_f32<float, 1>(const float* p, float* out) {
-  out[0] = *p;
-}
-template <> __device__ __forceinline__ void load_f32<__nv_bfloat16, 4>(const __nv_bfloat16* p,
-                                                                       float* out) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  out[0] = __uint_as_float(r.x << 16);
-  out[1] = __uint_as_float(r.x & 0xffff0000u);
-  out[2] = __uint_as_float(r.y << 16);
-  out[3] = __uint_as_float(r.y & 0xffff0000u);
-}
-template <> __device__ __forceinline__ void load_f32<__nv_bfloat16, 2>(const __nv_bfloat16* p,
-                                                                       float* out) {
-  const uint32_t r = *reinterpret_cast<const uint32_t*>(p);
-  out[0] = __uint_as_float(r << 16);
-  out[1] = __uint_as_float(r & 0xffff0000u);
-}
-template <> __device__ __forceinline__ void load_f32<__nv_bfloat16, 1>(const __nv_bfloat16* p,
-                                                                       float* out) {
-  out[0] = __bfloat162float(*p);
-}
-
-template <typename T, int DH>
-struct Shape {
-  static constexpr int kVec = (8 / (int)sizeof(T)) < DH ? (8 / (int)sizeof(T)) : DH;
-  static constexpr int kVecBytes = kVec * (int)sizeof(T);
-  static constexpr int kKStride = DH + kVec;  // padded K row (elements)
-  static constexpr int kVStride = DH;
-  static constexpr int kCols = DH >= 32 ? DH / 32 : 1;  // PV columns per lane
-};
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // mode 0: p1 = block_q, p2 = query tiles per pair
 // mode 1: p1 = block_h, p2 = heads
@@ -261,37 +192,6 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-             int head_dim, int mode, int block, cudaStream_t stream) {
-  switch (head_dim) {
-    case 1: return launch<T, 1>(q, k, v, o, B, H, S, mode, block, stream);
-    case 2: return launch<T, 2>(q, k, v, o, B, H, S, mode, block, stream);
-    case 4: return launch<T, 4>(q, k, v, o, B, H, S, mode, block, stream);
-    case 8: return launch<T, 8>(q, k, v, o, B, H, S, mode, block, stream);
-    case 16: return launch<T, 16>(q, k, v, o, B, H, S, mode, block, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, S, mode, block, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, S, mode, block, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, S, mode, block, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-size_t smem_for(int S, int head_dim) {
-  switch (head_dim) {
-    case 1: return smem_bytes<T, 1>(S);
-    case 2: return smem_bytes<T, 2>(S);
-    case 4: return smem_bytes<T, 4>(S);
-    case 8: return smem_bytes<T, 8>(S);
-    case 16: return smem_bytes<T, 16>(S);
-    case 32: return smem_bytes<T, 32>(S);
-    case 64: return smem_bytes<T, 64>(S);
-    case 128: return smem_bytes<T, 128>(S);
-    default: return 0;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -299,9 +199,12 @@ extern "C" {
 // Bytes of dynamic shared memory one block takes (0 for an unsupported
 // head_dim or dtype).  dtype: 0 = float32, 1 = bfloat16.
 size_t mcm_split_attention_smem_bytes(int S, int head_dim, int dtype) {
-  if (dtype == 0) return smem_for<float>(S, head_dim);
-  if (dtype == 1) return smem_for<__nv_bfloat16>(S, head_dim);
-  return 0;
+  return with_head_dim(head_dim, (size_t)0, [&](auto dh) -> size_t {
+    constexpr int DH = decltype(dh)::value;
+    if (dtype == 0) return smem_bytes<float, DH>(S);
+    if (dtype == 1) return smem_bytes<__nv_bfloat16, DH>(S);
+    return 0;
+  });
 }
 
 // q, k, v, o: contiguous [B, H, S, head_dim], 8-byte aligned.  mode: 0 =
@@ -314,9 +217,12 @@ int mcm_split_attention(const void* q, const void* k, const void* v, void* o, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if (block <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch<float>(q, k, v, o, B, H, S, head_dim, mode, block, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, B, H, S, head_dim, mode, block, s);
-  return (int)cudaErrorInvalidValue;
+  return with_head_dim(head_dim, (int)cudaErrorInvalidValue, [&](auto dh) {
+    constexpr int DH = decltype(dh)::value;
+    if (dtype == 0) return launch<float, DH>(q, k, v, o, B, H, S, mode, block, s);
+    if (dtype == 1) return launch<__nv_bfloat16, DH>(q, k, v, o, B, H, S, mode, block, s);
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 const char* mcm_split_attention_error_string(int code) {

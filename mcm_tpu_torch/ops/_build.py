@@ -3,9 +3,11 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  The libraries
 go into ``build/mcm_tpu_torch/`` beside the package, named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one is reused.  :func:`build_all` starts one ``nvcc`` per source, all at
-once.  A failed build raises with ``nvcc``'s output.
+the source, every ``csrc`` header it includes (``#include "..."``,
+followed through headers) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.  :func:`build_all` starts one
+``nvcc`` per source, all at once.  A failed build raises with ``nvcc``'s
+output.
 
 Nothing here runs at import: the wrappers import this module inside their
 CUDA branch.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +29,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "mcm_tpu_torch")
 
 #: every kernel source of the port
-SOURCES = ("bsd_attention", "mcm_score", "fused_mlp", "split_attention")
+SOURCES = ("bsd_attention", "mcm_score", "fused_mlp", "split_attention",
+           "flash_attention", "bsd_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,9 +53,28 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _inputs(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every header of ``csrc`` it includes, directly
+    or through another header, in the order first reached."""
+    files = [f"{name}.cu"]
+    for rel in files:
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                inc = inc.decode()
+                if (inc not in files
+                        and os.path.exists(os.path.join(CSRC_DIR, inc))):
+                    files.append(inc)
+    return files
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _inputs(name):
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -138,5 +161,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mcm_split_attention_smem_bytes.restype = ctypes.c_size_t
         lib.mcm_split_attention_error_string.argtypes = [i]
         lib.mcm_split_attention_error_string.restype = ctypes.c_char_p
+    elif name == "flash_attention":
+        lib.mcm_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.mcm_flash_attention.restype = i
+        lib.mcm_flash_attention_smem_bytes.argtypes = [i, i]
+        lib.mcm_flash_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.mcm_flash_attention_error_string.argtypes = [i]
+        lib.mcm_flash_attention_error_string.restype = ctypes.c_char_p
+    elif name == "bsd_probe":
+        lib.mcm_bsd_probe.argtypes = [p, p, p, p, i, i, i, i, ll, ll, i, i, p]
+        lib.mcm_bsd_probe.restype = i
+        lib.mcm_bsd_probe_error_string.argtypes = [i]
+        lib.mcm_bsd_probe_error_string.restype = ctypes.c_char_p
     else:
         raise ValueError(f"unknown kernel source {name!r}")

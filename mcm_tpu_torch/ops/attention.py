@@ -16,6 +16,10 @@
   replaces ``_attention_kernel``, ``_mh_attention_kernel`` and
   ``_batched_attention_kernel`` on ``[B, H, S, Dh]`` heads.  On a CPU
   tensor each runs :func:`split_attention_reference`, their plain version.
+* :func:`flash_attention` is the hand-written flash-style CUDA kernel
+  (``csrc/flash_attention.cu``) behind ``attn_impl="flash"``, which replaces
+  ``_flash_attention`` (jax's library TPU flash kernel) on ``[B, H, S, Dh]``
+  heads.  On a CPU tensor it runs :func:`flash_attention_reference`.
 * :func:`encoder_attention` routes as the JAX package does; "auto" means
   the bsd kernel for an unmasked bf16 call on a CUDA tensor whose shapes
   it takes, and the math path for everything else.
@@ -29,12 +33,6 @@ import torch
 
 from mcm_tpu_torch.config import Precision
 from mcm_tpu_torch.ops.numerics import matmul_f32, weak_scalar
-
-#: attn_impl names whose kernels are not ported yet → ROADMAP.md item
-_UNPORTED = {
-    "flash": "Queue 2, item 7 (_flash_attention)",
-}
-
 
 def _math_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor],
@@ -102,27 +100,47 @@ def bsd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError(f"bsd_attention needs q/k/v on one CUDA device or "
                          f"the CPU, got {q.device}, {k.device}, {v.device}")
-    if not all(t.is_contiguous() and t.data_ptr() % 8 == 0 for t in (q, k, v)):
-        raise ValueError("bsd_attention needs contiguous, 8-byte aligned "
-                         "q/k/v (the kernel stages them in 8-byte vectors)")
-    from mcm_tpu_torch.ops import _build
-    lib = _build.load("bsd_attention")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.mcm_bsd_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), b, s, heads, d // heads,
-                                   d, d, _BSD_DTYPES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"bsd_attention launch failed at B={b}, S={s}, D={d}, "
-            f"heads={heads}, {q.dtype}: "
-            f"{lib.mcm_bsd_attention_error_string(rc).decode()}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("bsd_attention needs contiguous q/k/v")
+    out = launch_bsd("bsd_attention", q, k, v, heads, d)
     bsd_attention.launches += 1
     return out
 
 
 bsd_attention.launches = 0
+
+
+def launch_bsd(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               heads: int, in_stride: int,
+               mode: Optional[int] = None) -> torch.Tensor:
+    """Launch the bsd kernel for the wrapper ``name`` on CUDA ``[B, S, D]``
+    views whose rows are ``in_stride`` elements apart; returns a new
+    ``[B, S, D]`` tensor.  ``mode`` None is ``csrc/bsd_attention.cu``; an
+    int is that mode of the timing probes in ``csrc/bsd_probe.cu``.  Counts
+    no launch: the caller's wrapper does."""
+    b, s, d = q.shape
+    if (any(t.data_ptr() % 8 for t in (q, k, v))
+            or in_stride * q.element_size() % 8):
+        raise ValueError(f"{name} needs 8-byte aligned q/k/v rows "
+                         f"(the kernel stages them in 8-byte vectors)")
+    from mcm_tpu_torch.ops import _build
+    lib = _build.load("bsd_attention" if mode is None else "bsd_probe")
+    out = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            heads, d // heads, in_stride, d, _BSD_DTYPES[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if mode is None:
+            rc = lib.mcm_bsd_attention(*args, stream)
+            err = lib.mcm_bsd_attention_error_string
+        else:
+            rc = lib.mcm_bsd_probe(*args, mode, stream)
+            err = lib.mcm_bsd_probe_error_string
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed at B={b}, S={s}, D={d}, "
+            f"heads={heads}, {q.dtype}: {err(rc).decode()}")
+    return out
 
 
 def split_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -139,34 +157,50 @@ def split_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return (p @ v.float()).to(dt)
 
 
-def _split_attention(fn, mode: int, q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor, block: int) -> torch.Tensor:
-    """Launch ``csrc/split_attention.cu`` in launch shape ``mode`` for the
-    wrapper ``fn`` (whose name and launch count it uses)."""
-    name = fn.__name__
+def _check_heads(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """What the split-heads and flash kernels take: equal ``[B, H, S, Dh]``
+    float32 or bfloat16 q/k/v, Dh a power of two up to 128."""
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"{name} needs equal [B, H, S, Dh] q/k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _BSD_DTYPES:
         raise ValueError(f"{name} takes float32 or bfloat16 q/k/v, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if block <= 0:
-        raise ValueError(f"{name}: the block must be positive, got {block}")
-    b, h, s, dh = q.shape
+    dh = q.shape[-1]
     if dh < 1 or dh & (dh - 1) or dh > 128:
         raise ValueError(f"{name} takes a head dim that is a power of two "
                          f"up to 128, got Dh={dh}")
-    if q.device.type == "cpu":
-        return split_attention_reference(q, k, v)
+
+
+def _dense_heads(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor):
+    """q/k/v on one CUDA device in the dense, 8-byte aligned ``[B, H, S,
+    Dh]`` layout the kernels read.  The heads of ``encoder_attention``'s
+    split are strided views, so this materialises them (as JAX's transpose
+    does)."""
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError(f"{name} needs q/k/v on one CUDA device or the CPU, "
                          f"got {q.device}, {k.device}, {v.device}")
-    # the heads of encoder_attention's split are strided views: the kernel
-    # reads a dense [B, H, S, Dh] layout, so materialise it (as JAX does)
     q, k, v = (t.contiguous() for t in (q, k, v))
     if any(t.data_ptr() % 8 for t in (q, k, v)):
         raise ValueError(f"{name} needs 8-byte aligned q/k/v (the kernel "
                          f"stages them in 8-byte vectors)")
+    return q, k, v
+
+
+def _split_attention(fn, mode: int, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, block: int) -> torch.Tensor:
+    """Launch ``csrc/split_attention.cu`` in launch shape ``mode`` for the
+    wrapper ``fn`` (whose name and launch count it uses)."""
+    name = fn.__name__
+    _check_heads(name, q, k, v)
+    if block <= 0:
+        raise ValueError(f"{name}: the block must be positive, got {block}")
+    b, h, s, dh = q.shape
+    if q.device.type == "cpu":
+        return split_attention_reference(q, k, v)
+    q, k, v = _dense_heads(name, q, k, v)
     from mcm_tpu_torch.ops import _build
     lib = _build.load("split_attention")
     out = torch.empty_like(q)
@@ -214,6 +248,80 @@ _SPLIT_KERNELS = {"pallas": pallas_attention, "pallas_mh": mh_attention,
                   "pallas_batched": batched_attention}
 
 
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the flash kernel: what ``_flash_attention`` (jax's
+    TPU flash kernel on S padded to a multiple of 128, keys at or past
+    ``kv_len`` masked) computes on ``[B, H, S, Dh]``, with its numerics.
+    Logits are the fp32 product scaled after it.  While the padded length
+    is at most 512 JAX takes one whole-sequence block: fp32 max, exp and
+    sum, ``p / l`` rounded to the input dtype, fp32 PV.  Past 512 it loops
+    over 128-key blocks with a running max and sum, rounding the
+    unnormalised ``p`` and rescaling the fp32 accumulator
+    (``flash_attention.py:439-473``)."""
+    b, h, s, dh = q.shape
+    kv_len = s if kv_len is None else kv_len
+    dt = q.dtype
+    scale = dh ** -0.5
+    qf = q.float()
+    if -(-s // 128) * 128 <= 512:
+        logits = (qf @ k[..., :kv_len, :].float().transpose(-1, -2)) * scale
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        p = (p / p.sum(dim=-1, keepdim=True)).to(dt).float()
+        return (p @ v[..., :kv_len, :].float()).to(dt)
+    m = torch.full((b, h, s, 1), -torch.inf, device=q.device)
+    l = torch.zeros((b, h, s, 1), device=q.device)
+    acc = torch.zeros((b, h, s, dh), device=q.device)
+    for k0 in range(0, kv_len, 128):
+        blk = slice(k0, min(k0 + 128, kv_len))
+        logits = (qf @ k[..., blk, :].float().transpose(-1, -2)) * scale
+        m_next = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - m_next)
+        l_corr = torch.exp(m - m_next) * l
+        l_next = p.sum(dim=-1, keepdim=True) + l_corr
+        l_inv = torch.where(l_next == 0, 1.0, 1.0 / l_next)
+        acc = acc * (l_corr * l_inv) + (p.to(dt).float()
+                                        @ v[..., blk, :].float()) * l_inv
+        m, l = m_next, l_next
+    return acc.to(dt)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """``attn_impl="flash"``: unmasked attention on ``[B, H, S, Dh]`` through
+    the flash kernel (``csrc/flash_attention.cu``), every query row over
+    keys ``[0, kv_len)`` (default: all S); on a CPU tensor, through its
+    plain version.  Raises on what the kernel does not take."""
+    name = "flash_attention"
+    _check_heads(name, q, k, v)
+    b, h, s, dh = q.shape
+    kv_len = s if kv_len is None else kv_len
+    if not 1 <= kv_len <= s:
+        raise ValueError(f"{name}: kv_len must lie in [1, S={s}], got {kv_len}")
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, kv_len)
+    q, k, v = _dense_heads(name, q, k, v)
+    from mcm_tpu_torch.ops import _build
+    lib = _build.load("flash_attention")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.mcm_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     out.data_ptr(), b, h, s, dh, kv_len,
+                                     _BSD_DTYPES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed at (B, H, S, Dh)={(b, h, s, dh)}, "
+            f"kv_len={kv_len}, {q.dtype}: "
+            f"{lib.mcm_flash_attention_error_string(rc).decode()}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       heads: int, mask: Optional[torch.Tensor],
                       precision: Precision) -> torch.Tensor:
@@ -256,15 +364,13 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     impl: Optional[str] = None) -> torch.Tensor:
     """Multi-head attention ``[B, H, S, Dh]`` → ``[B, H, S, Dh]`` (pre-split
     heads).  ``impl``: "pallas" | "pallas_mh" | "pallas_batched" → the
-    split-heads kernel in that launch shape; "flash" raises until it is
-    ported; "xla", None or any other name → the math path, as in the JAX
-    package.  Masked calls always take the math path."""
+    split-heads kernel in that launch shape; "flash" → the flash kernel;
+    "xla", None or any other name → the math path, as in the JAX package.
+    Masked calls always take the math path."""
     if mask is not None:
         return _math_attention(q, k, v, mask, precision)
     if impl in _SPLIT_KERNELS:
         return _SPLIT_KERNELS[impl](q, k, v)
-    if impl in _UNPORTED:
-        raise NotImplementedError(
-            f"attn_impl={impl!r} is not ported yet: ROADMAP.md "
-            f"{_UNPORTED[impl]}")
+    if impl == "flash":
+        return flash_attention(q, k, v)
     return _math_attention(q, k, v, mask, precision)

@@ -139,17 +139,33 @@ def test_forced_bsd_bad_shapes_raise(d, heads):
 
 
 @pytest.mark.parametrize("impl", ["flash", "pallas_bsd_vjp"])
-def test_unported_attn_impls_raise(impl):
-    q = torch.zeros((1, 8, 128))
+def test_unported_attn_impls_raise(rng, impl):
+    """``pallas_bsd_vjp`` (trainable bsd attention) is not ported and raises
+    on an unmasked call; ``flash`` is ported: an unmasked call goes through
+    ``flash_attention`` on the split heads (its plain version on a CPU
+    tensor, no launch).  Masked (text-tower) calls take the math path for
+    both, as in the JAX package."""
+    q, k, v = (torch.from_numpy(a) for a in _arrays(rng, (1, 8, 128)))
     prec = dataclasses.replace(Precision.parity(), attn_impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention.encoder_attention(q, q, q, heads=2, mask=None,
-                                    precision=prec)
-    # masked (text-tower) calls take the math path, as in the JAX package
-    out = attention.encoder_attention(q, q, q, heads=2,
-                                      mask=torch.zeros((1, 1, 8, 8)),
+    if impl == "flash":
+        before = attention.flash_attention.launches
+        got = attention.encoder_attention(q, k, v, heads=2, mask=None,
+                                          precision=prec)
+        assert attention.flash_attention.launches == before
+        split = [t.reshape(1, 8, 2, 64).transpose(1, 2) for t in (q, k, v)]
+        want = attention.flash_attention_reference(*split)
+        torch.testing.assert_close(got, want.transpose(1, 2).reshape(1, 8, 128),
+                                   rtol=0, atol=0)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            attention.encoder_attention(q, k, v, heads=2, mask=None,
+                                        precision=prec)
+    mask = torch.zeros((1, 1, 8, 8))
+    out = attention.encoder_attention(q, k, v, heads=2, mask=mask,
                                       precision=prec)
-    assert out.shape == q.shape
+    torch.testing.assert_close(out, attention.encoder_attention(
+        q, k, v, heads=2, mask=mask, precision=Precision.parity()),
+        rtol=0, atol=0)
 
 
 # -- split-heads kernels ------------------------------------------------------

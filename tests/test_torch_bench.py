@@ -197,7 +197,8 @@ def test_cpu_run_prints_the_jax_row_keys(tiny_bench, capsys):
 
 
 @pytest.mark.filterwarnings("ignore:MCM_TPU_TEST_TINY_B16")
-@pytest.mark.parametrize("attn", ["pallas", "pallas_mh", "pallas_batched"])
+@pytest.mark.parametrize("attn", ["pallas", "pallas_mh", "pallas_batched",
+                                  "flash"])
 def test_cpu_run_with_kernel_knobs(tiny_bench, attn, capsys):
     """The knobs reach the wrappers; on the CPU each runs its plain
     version, so no kernel is launched."""
@@ -207,7 +208,7 @@ def test_cpu_run_with_kernel_knobs(tiny_bench, attn, capsys):
     tiny_bench.setenv("MCM_BENCH_ATTN", attn)
     counters = (mlp.fused_mlp, attention.pallas_attention,
                 attention.mh_attention, attention.batched_attention,
-                attention.bsd_attention)
+                attention.flash_attention, attention.bsd_attention)
     before = [c.launches for c in counters]
     row = bench.main(device="cpu")
     assert [c.launches for c in counters] == before
@@ -217,9 +218,22 @@ def test_cpu_run_with_kernel_knobs(tiny_bench, attn, capsys):
 
 @pytest.mark.filterwarnings("ignore:MCM_TPU_TEST_TINY_B16")
 def test_flash_knob_raises(tiny_bench):
+    """``MCM_BENCH_ATTN=flash`` no longer raises: the flash kernel is ported,
+    and every vision layer of every timed batch runs its attention through
+    ``flash_attention`` (the plain version here), never through bsd."""
+    from mcm_tpu_torch.ops import attention
     tiny_bench.setenv("MCM_BENCH_ATTN", "flash")
-    with pytest.raises(NotImplementedError, match="Queue 2, item 7"):
-        bench.main(device="cpu")
+    tiny_bench.setenv("MCM_BENCH_E2E", "0")
+    calls = []
+    ref = attention.flash_attention_reference
+    tiny_bench.setattr(attention, "flash_attention_reference",
+                       lambda *a, **kw: calls.append(a[0].shape) or ref(*a, **kw))
+    row = bench.main(device="cpu")
+    layers = CLIP_CONFIGS["ViT-B/16"]().vision.layers
+    batches = bench.WARMUP + bench.WINDOWS * bench.ITERS_PER_WINDOW
+    assert row["attn_impl"] == "flash"
+    assert len(calls) == layers * batches
+    assert {shape[0] for shape in calls} == {2}        # MCM_BENCH_BATCH
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -18,6 +18,10 @@ MLP: bf16 at 3.2e-2 absolute (one bf16 ulp at |y| < 8, outputs here stay
 below 8; h may round to a neighbouring bf16 value, which moves y by far
 less), fp32 at 2e-4 (fp32 summation order over D + F ≤ 5120 terms, the
 tolerance of the JAX package's ``test_fused_mlp_matches_reference``).
+The flash kernel and the tools' kernels (bsd probe modes, packed bsd) use
+the attention tolerances; the probe's ``nosoftmax``, whose outputs are
+large, is held to one bf16 ulp (bf16) or 2e-5 (fp32) of its largest |x|,
+and the packed bsd must be bit-identical to the split one.
 """
 
 import numpy as np
@@ -330,3 +334,137 @@ def test_split_kernel_refuses_bad_shapes(cuda):
         attention.pallas_attention(q, q, q)
     with pytest.raises(ValueError, match=r"\[B, H, S, Dh\]"):
         attention.mh_attention(q[0], q[0], q[0])
+
+
+# -- flash attention -------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((128, 12, 197, 64), torch.bfloat16),  # ViT-B/16, the smoke's path shape
+    ((64, 16, 257, 64), torch.bfloat16),   # ViT-L/14: three key tiles
+    ((64, 12, 50, 64), torch.bfloat16),    # ViT-B/32: one key tile
+    ((16, 12, 197, 64), torch.float32),
+    ((2, 4, 600, 64), torch.float32),      # S_pad > 512: JAX's block loop
+    ((2, 4, 600, 64), torch.bfloat16),
+    ((1, 2, 128, 64), torch.float32),      # exactly one key tile
+    ((1, 2, 129, 64), torch.float32),      # a tile of one key
+    ((2, 3, 33, 16), torch.float32),       # Dh < 32
+    ((2, 2, 300, 128), torch.bfloat16),    # Dh = 128
+])
+def test_flash_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v = _qkv(shape, dtype, cuda)
+    before = attention.flash_attention.launches
+    got = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == before + 1
+    want = attention.flash_attention_reference(q, k, v)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("s,kv_len", [(256, 197), (256, 1), (640, 600)])
+def test_flash_kernel_kv_len(cuda, s, kv_len):
+    """Keys at or past kv_len are skipped: the padded rows of the
+    shootout's ``flash_pad256_mask`` and JAX's multi-block masking."""
+    q, k, v = _qkv((2, 3, s, 64), torch.float32, cuda)
+    got = attention.flash_attention(q, k, v, kv_len=kv_len)
+    want = attention.flash_attention_reference(q, k, v, kv_len)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s", [33, 197])
+def test_flash_kernel_writes_nothing_past_the_output(cuda, s):
+    """The output lies at the start of a larger buffer filled with a
+    sentinel: the tail query tile writes only the rows that exist."""
+    from mcm_tpu_torch.ops import _build
+    lib = _build.load("flash_attention")
+    b, h, dh = 2, 3, 64
+    q, k, v = _qkv((b, h, s, dh), torch.float32, cuda)
+    n = b * h * s * dh
+    buf = torch.full((n + 4096,), 7.0, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    rc = lib.mcm_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 buf.data_ptr(), b, h, s, dh, s, 0, stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert bool((buf[n:] == 7.0).all())
+    torch.testing.assert_close(buf[:n].view(b, h, s, dh),
+                               attention.flash_attention_reference(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_refuses_a_bad_kv_len(cuda):
+    from mcm_tpu_torch.ops import _build
+    lib = _build.load("flash_attention")
+    q = torch.zeros((1, 1, 8, 64), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for kv_len in (0, 9):
+        assert lib.mcm_flash_attention(q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                                       q.data_ptr(), 1, 1, 8, 64, kv_len, 0,
+                                       stream) != 0
+
+
+def test_encoder_attention_routes_flash(cuda):
+    """``attn_impl="flash"`` launches the flash kernel (and not bsd) on
+    strided split views, within the bf16 bound of the math path."""
+    import dataclasses
+    q, k, v = _qkv((4, 197, 768), torch.bfloat16, cuda)
+    before = (attention.flash_attention.launches,
+              attention.bsd_attention.launches)
+    got = attention.encoder_attention(
+        q, k, v, heads=12, mask=None,
+        precision=dataclasses.replace(Precision.fast(), attn_impl="flash"))
+    assert (attention.flash_attention.launches,
+            attention.bsd_attention.launches) == (before[0] + 1, before[1])
+    want = attention.encoder_attention(
+        q, k, v, heads=12, mask=None,
+        precision=dataclasses.replace(Precision.fast(), attn_impl="xla"))
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2, atol=5e-2)
+
+
+# -- the tools' kernels: bsd probe modes, packed bsd -----------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["full", "nosoftmax", "noexp", "bf16sm",
+                                  "deferdiv"])
+def test_bsd_probe_kernel_matches_plain(cuda, mode, dtype):
+    """Each mode against its plain version at the tool's head width (64):
+    bf16 at 2e-2 and fp32 at 2e-5 absolute (bf16sm rounds to bf16 whatever
+    the input: 2e-2); nosoftmax, whose outputs reach |x| ≈ 50 here, at one
+    bf16 ulp (bf16) or 2e-5 (fp32) of the output's largest |x|."""
+    import math
+
+    from mcm_tpu_torch.tools import bsd_probe
+    q, k, v = _qkv((8, 197, 768), dtype, cuda)
+    before = bsd_probe.probe.launches
+    got = bsd_probe.probe(q, k, v, mode)
+    torch.cuda.synchronize()
+    assert bsd_probe.probe.launches == before + 1
+    want = bsd_probe.probe_reference(q, k, v, mode)
+    bf16 = dtype == torch.bfloat16
+    if mode == "nosoftmax":
+        scale = float(want.float().abs().max())
+        tol = 2.0 ** (math.floor(math.log2(scale)) - 7) if bf16 else 2e-5 * scale
+    else:
+        tol = 2e-2 if bf16 or mode == "bf16sm" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_bsd_probe_full_is_the_bsd_kernel(cuda):
+    """Mode full is the main path's kernel body: bit-identical output."""
+    from mcm_tpu_torch.tools import bsd_probe
+    q, k, v = _qkv((4, 197, 768), torch.bfloat16, cuda)
+    assert torch.equal(bsd_probe.probe(q, k, v, "full"),
+                       attention.bsd_attention(q, k, v, 12))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_packed_bsd_is_bit_identical_to_split(cuda, dtype):
+    from mcm_tpu_torch.tools import qkv_probe
+    qkv = _qkv((4, 197, 3 * 768), dtype, cuda)[0]
+    before = qkv_probe.bsd_fused.launches
+    got = qkv_probe.bsd_fused(qkv, 768, 12)
+    torch.cuda.synchronize()
+    assert qkv_probe.bsd_fused.launches == before + 1
+    split = attention.bsd_attention(
+        *(t.contiguous() for t in qkv.split(768, dim=-1)), 12)
+    assert torch.equal(got, split)
