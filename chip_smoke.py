@@ -5,12 +5,17 @@
 
 1. Prints the card (``nvidia-smi``), builds every CUDA kernel of the
    port's paths from ``mcm_tpu_torch/csrc`` (one ``nvcc`` per source, in
-   parallel) and prints ptxas's register / shared-memory / spill lines.
+   parallel) and prints ptxas's register / shared-memory / spill lines,
+   and the count of tensor-core (``HMMA``) instructions in each library's
+   SASS (``cuobjdump -sass``): the attention libraries redesigned for
+   tensor cores must hold some and spill nothing.
 2. Kernel phase: each kernel against its plain PyTorch version on the card
    at its paths' shapes, with the tolerance stated; CUDA-event times of
    the kernel, the plain version and one PyTorch library call for the
    same function, beside the least time the card could take (the bound).
-   The flash kernel includes an S > 512 case (JAX's multi-block branch);
+   bsd and ``batched_attention`` include bf16 cases at S = 600 (K/V of
+   152 KB in shared memory) and S = 17 (a ragged 16-row tile);
+   the flash kernel includes an S > 512 case (JAX's multi-block branch);
    each bsd probe mode is held against its plain version; the packed bsd
    launch (``bsd_fused``) must be bit-identical to the split one.
 3. Slice phase: the eval CLI (``mcm_tpu_torch.cli.eval_ood``) at the full
@@ -120,16 +125,35 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 # -- 1. build -----------------------------------------------------------------
 
-def build() -> None:
+#: the libraries whose bf16 attention runs on tensor cores
+TENSOR_CORE_LIBS = ("bsd_attention", "bsd_probe", "split_attention")
+
+
+def build() -> dict:
+    """Build every kernel source; return each library's count of HMMA
+    (tensor-core) instructions in its SASS."""
     from mcm_tpu_torch.ops import _build
     t = time.perf_counter()
-    _build.build_all()
+    paths = _build.build_all()
     print(f"built {', '.join(_build.SOURCES)} in "
           f"{time.perf_counter() - t:.1f}s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if re.search(r"Compiling entry|registers|spill", line):
                 print(f"[{name}] {line.strip()}")
+        if name in TENSOR_CORE_LIBS:
+            spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+            check(all(n == "0" for n in spills), f"{name}: ptxas spills")
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    hmma = {}
+    for name, path in zip(_build.SOURCES, paths):
+        sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                              text=True, check=True).stdout
+        hmma[name] = len(re.findall(r"\bHMMA\.", sass))
+        print(f"[{name}] HMMA instructions in SASS: {hmma[name]}", flush=True)
+    check(all(hmma[n] > 0 for n in TENSOR_CORE_LIBS),
+          f"no HMMA in a tensor-core attention library: {hmma}")
+    return hmma
 
 
 # -- 2. kernel phase -------------------------------------------------------------
@@ -359,6 +383,8 @@ def kernel_phase() -> dict:
                  (512, 197, 768, 12, torch.bfloat16, False),
                  (64, 50, 768, 12, torch.bfloat16, False),
                  (64, 257, 1024, 16, torch.bfloat16, False),
+                 (16, 600, 768, 12, torch.bfloat16, False),
+                 (BATCH, 17, 768, 12, torch.bfloat16, False),
                  (16, 197, 768, 12, torch.float32, False)]
     for args in bsd_cases:
         row = bsd_case(*args)
@@ -386,9 +412,12 @@ def kernel_phase() -> dict:
         if row["main_path_shape"]:
             main["fused_mlp"] = row
     for name in ATTN_KNOBS:
-        # flash also runs S = 600, which JAX pads past 512 (its block loop)
-        extra = ((2, 4, 600, 64, torch.float32, False),) \
-            if name == "flash_attention" else ()
+        # flash also runs S = 600, which JAX pads past 512 (its block
+        # loop); batched_attention S = 600 (a one-stage ring) and S = 17
+        extra = {"flash_attention": ((2, 4, 600, 64, torch.float32, False),),
+                 "batched_attention": (
+                     (16, 12, 600, 64, torch.bfloat16, False),
+                     (BATCH, 12, 17, 64, torch.bfloat16, False))}.get(name, ())
         for args in ((BATCH, 12, 197, 64, torch.bfloat16, True),
                      (64, 16, 257, 64, torch.bfloat16, False),
                      (64, 12, 50, 64, torch.bfloat16, False),
@@ -747,7 +776,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     walls = {}
     t = time.perf_counter()
-    build()
+    hmma = build()
     walls["build"] = time.perf_counter() - t
     t = time.perf_counter()
     main_rows = kernel_phase()
@@ -773,6 +802,7 @@ def main() -> int:
                  "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "shape": row["case"],
+                 "sass_hmma": hmma[os.path.basename(source)[:-3]],
                  "status": "built; within tolerance of its plain "
                            "version; launched on its path"}
         if "modes" in row:

@@ -1,9 +1,12 @@
 // Helpers shared by the attention kernels (bsd_attention.cuh,
 // split_attention.cu, flash_attention.cu): element conversions, raw vector
-// loads for staging K/V in shared memory, the padded K-row layout, warp
-// reductions and the head-dim dispatch.  Each .cu file that includes this
-// header is its own shared library, so the anonymous namespace gives every
-// library its own copy.
+// loads for staging K/V in shared memory, the padded K-row layout of the
+// CUDA-core bodies (fp32, and bf16 below a head dim of 16), warp reductions
+// and the head-dim dispatch.  The tensor-core bodies of bsd and split-heads
+// attention in bf16 (mma.sync over cp.async-staged, swizzled K/V tiles) are
+// in attention_mma.cuh, which builds on this header.  Each .cu file that
+// includes it is its own shared library, so the anonymous namespace gives
+// every library its own copy.
 
 #pragma once
 

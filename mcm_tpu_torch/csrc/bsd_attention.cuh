@@ -22,38 +22,57 @@
 //   kDeferDiv   e = exp(logits − m) rounded to the input type into PV, the
 //               fp32 output divided by the fp32 row sum.
 //
-// Bound on an H100 at the main-path shape (B = 512, S = 197, D = 768,
-// 12 heads, bf16): 61.0 GFLOP (62 µs at 989 TFLOP/s) against 620 MB of
-// q/k/v/o traffic (185 µs at 3.35 TB/s), so the function is memory-bound,
-// about 0.185 ms per launch.
+// Bound on an H100: bytes.  At the main-path shape of a B = 128 score batch
+// (S = 197, D = 768, 12 heads, bf16) q/k/v/o are 155 MB (0.046 ms at
+// 3.35 TB/s) against 15.3 GFLOP (0.015 ms at 989 TFLOP/s).
 //
-// Design (simple and right first; wgmma and TMA are later work):
-//   * one block per (image, head, tile of QTILE query rows), flattened into
-//     gridDim.x so that the tiles of one head run next to each other and
-//     share its K/V through L2 (and no grid dimension is capped at 65535);
-//   * the head's whole K and V are staged in dynamic shared memory (65.8 KB
-//     at S = 257, Dh = 64 in bf16), K rows padded by one 8-byte vector so
-//     that 32 lanes reading 32 different keys hit different banks;
-//   * one warp per query row: q lives in registers, each lane computes the
-//     logits of keys lane, lane+32, ... into a per-warp shared row, then
-//     warp shuffles reduce the max and the sum;
-//   * in PV each lane owns Dh/32 output columns (or one, for Dh < 32) and
-//     walks all S keys;
-//   * ragged tail rows (S = 197 and 257 are not multiples of 32 or of the
-//     tile) are skipped per warp; only the staging needs __syncthreads.
-// Built without --use_fast_math: expf and the division are IEEE.
+// Two designs, chosen by dtype and head dim at compile time (never on a
+// failed build or launch):
+//   * bf16 at Dh ≥ 16 — tensor cores (attention_mma.cuh): one block per
+//     (image, head), so the head's K and V are read from device memory once
+//     (the CUDA-core design below restaged them for each of its 64-row
+//     tiles).  cp.async stages K, then V, into swizzled shared-memory tiles
+//     (52 KB at S = 197, Dh = 64), V landing while the warps' first pass
+//     runs on K.  The 8 warps walk the head's ⌈S/16⌉ 16-row tiles; each
+//     computes QKᵀ and PV with mma.sync over ldmatrix fragments, in the two
+//     passes over the keys that attention_mma.cuh describes.  The products
+//     that held the CUDA-core design to 33× its bound (one shared-memory
+//     load per FMA) leave the critical path.
+//   * fp32 (parity mode: IEEE fp32 products, which the tensor cores offer
+//     only as TF32) and bf16 at Dh < 16 — CUDA cores: one block per (image,
+//     head, tile of 64 query rows), flattened into gridDim.x so that the
+//     tiles of one head run next to each other and share its K/V through
+//     L2; the head's whole K and V in dynamic shared memory, K rows padded
+//     by one 8-byte vector so that 32 lanes reading 32 different keys hit
+//     different banks; one warp per query row (q in registers, the logits
+//     of keys lane, lane + 32, ... in a per-warp shared row, warp shuffles
+//     for the max and the sum); in PV each lane owns Dh/32 output columns
+//     (or one, for Dh < 32).
+// Built without --use_fast_math: expf is IEEE, and so is the division of
+// the CUDA-core bodies; the tensor-core bodies round each quotient
+// correctly from one reciprocal per row (attention_mma.cuh).
 
 #pragma once
 
 #include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
 constexpr int kQTile = 64;
 
-enum BsdMode : int { kFull = 0, kNoSoftmax = 1, kNoExp = 2, kBf16Sm = 3, kDeferDiv = 4 };
-
 __device__ __forceinline__ float round_bf16(float x) { return round_to<__nv_bfloat16>(x); }
+
+template <int DH, int MODE>
+__global__ void __launch_bounds__(kThreads)
+bsd_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o, int S, int heads,
+                         long long in_stride, long long out_stride, float scale, bool vec16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attend_pairs<DH, MODE, 1, kWarps>(q, k, v, o, S, blockIdx.x, 1, 0, S,
+                                    PairLayout{in_stride, out_stride, heads}, scale, vec16,
+                                    smem);
+}
 
 template <typename T, int DH, int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -175,9 +194,13 @@ bsd_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 size_t bsd_smem_bytes(int S) {
-  using Sh = Shape<T, DH>;
-  size_t kv = ((size_t)S * (Sh::kKStride + Sh::kVStride) * sizeof(T) + 15) & ~(size_t)15;
-  return kv + (size_t)kWarps * S * sizeof(float);
+  if constexpr (kTensorCores<T, DH>) {
+    return mma_stage_bytes<DH>(S);
+  } else {
+    using Sh = Shape<T, DH>;
+    size_t kv = ((size_t)S * (Sh::kKStride + Sh::kVStride) * sizeof(T) + 15) & ~(size_t)15;
+    return kv + (size_t)kWarps * S * sizeof(float);
+  }
 }
 
 template <typename T, int DH, int MODE>
@@ -185,17 +208,32 @@ int bsd_launch(const void* q, const void* k, const void* v, void* o, int B, int 
                int heads, long long in_stride, long long out_stride,
                cudaStream_t stream) {
   const size_t smem = bsd_smem_bytes<T, DH>(S);
-  cudaError_t err = cudaFuncSetAttribute(bsd_attention_kernel<T, DH, MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (S + kQTile - 1) / kQTile;
-  const long long blocks = (long long)B * heads * n_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const float scale = (float)(1.0 / sqrt((double)DH));  // Dh^-½ rounded once
-  bsd_attention_kernel<T, DH, MODE><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, heads, n_tiles, in_stride, out_stride, scale);
+  if constexpr (kTensorCores<T, DH>) {
+    cudaError_t err = cudaFuncSetAttribute(bsd_attention_mma_kernel<DH, MODE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (long long)B * heads;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    // every K/V row starts on 16 bytes: the bases, and the row stride (the
+    // head offset h·Dh·2 is a multiple of 32)
+    const bool vec16 = ((uintptr_t)k | (uintptr_t)v) % 16 == 0 && in_stride * sizeof(T) % 16 == 0;
+    bsd_attention_mma_kernel<DH, MODE><<<(unsigned)blocks, kThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), S, heads, in_stride, out_stride, scale, vec16);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(bsd_attention_kernel<T, DH, MODE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int n_tiles = (S + kQTile - 1) / kQTile;
+    const long long blocks = (long long)B * heads * n_tiles;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    bsd_attention_kernel<T, DH, MODE><<<(unsigned)blocks, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), S, heads, n_tiles, in_stride, out_stride, scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -16,6 +16,14 @@
   replaces ``_attention_kernel``, ``_mh_attention_kernel`` and
   ``_batched_attention_kernel`` on ``[B, H, S, Dh]`` heads.  On a CPU
   tensor each runs :func:`split_attention_reference`, their plain version.
+* Both are bound by bytes on an H100 (0.046 ms for q/k/v/o at ViT-B/16's
+  B = 128 shape).  In bf16 at head dims from 16 both run on tensor cores
+  (``csrc/attention_mma.cuh``): a warp owns 16 query rows, QKᵀ and PV are
+  ``mma.sync`` products over K/V that ``cp.async`` stages into swizzled
+  shared-memory tiles, read once per (image, head) from device memory, and
+  the keys are walked twice so that ``p`` is rounded where JAX rounds it.
+  fp32 (IEEE products for parity mode) and bf16 below 16 run on CUDA cores.
+  The dispatch is by dtype and head dim, inside the library.
 * :func:`flash_attention` is the hand-written flash-style CUDA kernel
   (``csrc/flash_attention.cu``) behind ``attn_impl="flash"``, which replaces
   ``_flash_attention`` (jax's library TPU flash kernel) on ``[B, H, S, Dh]``

@@ -44,10 +44,12 @@ def test_bsd_plain_matches_pallas_kernel(rng, shape, heads, block_b):
                                rtol=2e-5, atol=2e-5)
 
 
-def test_bsd_plain_matches_pallas_kernel_bf16(rng):
+@pytest.mark.parametrize("s", [16, 17, 65, 197])
+def test_bsd_plain_matches_pallas_kernel_bf16(rng, s):
     """bf16 inputs: both round q·scale and p to bf16; outputs within one
-    bf16 ulp at |x| ≤ 4 (1.6e-2)."""
-    q, k, v = _arrays(rng, (2, 197, 256))
+    bf16 ulp at |x| ≤ 4 (1.6e-2).  S at the card kernel's tile and chunk
+    edges (16-row tiles, 16-key steps, 64-key chunks) and ViT-B/16's 197."""
+    q, k, v = _arrays(rng, (2, s, 256))
     with pltpu.force_tpu_interpret_mode():
         want = _pallas_bsd_attention(*(jnp.asarray(a, jnp.bfloat16)
                                        for a in (q, k, v)), heads=4,
@@ -203,11 +205,12 @@ def test_split_plain_matches_pallas_batched_kernel(rng, shape, block_bh):
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("s", [16, 17, 65, 197])
 @pytest.mark.parametrize("jax_kernel", ["pallas", "pallas_batched"])
-def test_split_plain_matches_pallas_kernels_bf16(rng, jax_kernel):
+def test_split_plain_matches_pallas_kernels_bf16(rng, jax_kernel, s):
     """bf16 inputs: both round q·scale and p to bf16; outputs within one
-    bf16 ulp at |x| ≤ 4 (1.6e-2)."""
-    q, k, v = _arrays(rng, (2, 2, 197, 64))
+    bf16 ulp at |x| ≤ 4 (1.6e-2).  S as in the bsd test above."""
+    q, k, v = _arrays(rng, (2, 2, s, 64))
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
     with pltpu.force_tpu_interpret_mode():
         want = (_pallas_attention(jq, jk, jv) if jax_kernel == "pallas"

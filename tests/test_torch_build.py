@@ -28,9 +28,13 @@ def test_every_source_is_in_the_tree():
 
 def test_inputs_follow_includes_through_headers():
     assert _build._inputs("bsd_attention") == [
-        "bsd_attention.cu", "bsd_attention.cuh", "attention_common.cuh"]
+        "bsd_attention.cu", "bsd_attention.cuh", "attention_common.cuh",
+        "attention_mma.cuh"]
     assert _build._inputs("bsd_probe") == [
-        "bsd_probe.cu", "bsd_attention.cuh", "attention_common.cuh"]
+        "bsd_probe.cu", "bsd_attention.cuh", "attention_common.cuh",
+        "attention_mma.cuh"]
+    assert _build._inputs("split_attention") == [
+        "split_attention.cu", "attention_common.cuh", "attention_mma.cuh"]
     assert _build._inputs("flash_attention") == [
         "flash_attention.cu", "attention_common.cuh"]
     assert _build._inputs("mcm_score") == ["mcm_score.cu"]
@@ -40,6 +44,7 @@ def test_inputs_follow_includes_through_headers():
     ("bsd_attention.cuh", {"bsd_attention", "bsd_probe"}),
     ("attention_common.cuh", {"bsd_attention", "bsd_probe",
                               "split_attention", "flash_attention"}),
+    ("attention_mma.cuh", {"bsd_attention", "bsd_probe", "split_attention"}),
 ])
 def test_header_edit_changes_the_library_name(csrc, header, changed):
     before = {n: _build._lib_path(n) for n in _build.SOURCES}

@@ -47,6 +47,13 @@ def _qkv(shape, dtype, device, seed=0):
             .to(device=device, dtype=dtype) for _ in range(3)]
 
 
+#: S at the tensor-core kernel's edges: 16-row tiles, 16-key chunks, ViT-B/16
+#: and L/14, and 600 (K/V of 152 KB in shared memory)
+_EDGE_S = [1, 15, 16, 17, 63, 64, 65, 197, 257, 600]
+#: bf16 head dims of each design: CUDA cores below 16, tensor cores from 16
+_BF16_DH = [4, 8, 16, 32, 128]
+
+
 @pytest.mark.parametrize("b,s,d,heads,dtype", [
     (256, 197, 768, 12, torch.bfloat16),   # ViT-B/16
     (64, 50, 768, 12, torch.bfloat16),     # ViT-B/32
@@ -56,7 +63,8 @@ def _qkv(shape, dtype, device, seed=0):
     (5, 33, 128, 16, torch.float32),       # Dh = 8
     (2, 197, 256, 4, torch.bfloat16),
     (2, 40, 256, 2, torch.bfloat16),       # Dh = 128
-])
+] + [(3, s, 128, 2, torch.bfloat16) for s in _EDGE_S]          # Dh = 64
+  + [(3, s, 128, 128 // dh, torch.bfloat16) for dh in _BF16_DH for s in (17, 197)])
 def test_bsd_kernel_matches_plain(cuda, b, s, d, heads, dtype):
     q, k, v = _qkv((b, s, d), dtype, cuda)
     before = attention.bsd_attention.launches
@@ -66,6 +74,24 @@ def test_bsd_kernel_matches_plain(cuda, b, s, d, heads, dtype):
     want = attention.bsd_attention_reference(q, k, v, heads)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_bsd_smem_bytes_follow_the_design(cuda):
+    """The dispatch is by dtype and head dim: bf16 from Dh = 16 takes the
+    tensor-core kernel (K and V as unpadded [S rounded to 16, Dh] tiles),
+    fp32 and bf16 below 16 the CUDA-core kernel (padded K rows and a
+    per-warp fp32 logits row)."""
+    from mcm_tpu_torch.ops import _build
+    lib = _build.load("bsd_attention")
+    for s in (1, 17, 197, 600):
+        s16 = -(-s // 16) * 16
+        for dh in (16, 32, 64, 128):
+            assert lib.mcm_bsd_attention_smem_bytes(s, dh, 1) == 2 * s16 * dh * 2
+            vec = 2
+            cuda_core = (-(-s * (2 * dh + vec) * 4 // 16) * 16) + 8 * s * 4
+            assert lib.mcm_bsd_attention_smem_bytes(s, dh, 0) == cuda_core
+        cuda_core_bf16 = (-(-s * (2 * 8 + 4) * 2 // 16) * 16) + 8 * s * 4
+        assert lib.mcm_bsd_attention_smem_bytes(s, 8, 1) == cuda_core_bf16
 
 
 def test_bsd_kernel_refuses_bad_shapes(cuda):
@@ -257,7 +283,10 @@ _SPLIT = {"pallas": ("pallas_attention", "block_q"),
     ((3, 5, 33, 16), torch.float32, 3),          # H = 5 in groups of 3
     ((2, 2, 40, 128), torch.bfloat16, 1),
     ((2, 4, 197, 64), torch.float32, 64),        # 4 query tiles (pallas)
-])
+# bf16 edges with the default blocks: 2 × 7 pairs leave mode 1 a tail group
+# of one head and mode 2 a group of 14 (no multiple of its 3-stage ring)
+] + [((2, 7, s, 64), torch.bfloat16, None) for s in _EDGE_S]
+  + [((2, 7, s, dh), torch.bfloat16, None) for dh in _BF16_DH for s in (17, 197)])
 def test_split_kernel_matches_plain(cuda, impl, shape, dtype, block):
     name, arg = _SPLIT[impl]
     fn = getattr(attention, name)
@@ -272,28 +301,39 @@ def test_split_kernel_matches_plain(cuda, impl, shape, dtype, block):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("mode,block", [(0, 8), (1, 3), (2, 3)])
-def test_split_kernel_writes_nothing_past_the_tail(cuda, mode, block):
+@pytest.mark.parametrize("mode,block,dtype,s", [
+    (0, 8, torch.float32, 33), (1, 3, torch.float32, 33),
+    (2, 3, torch.float32, 33),
+    (0, 8, torch.bfloat16, 33), (1, 3, torch.bfloat16, 33),
+    (2, 3, torch.bfloat16, 33),      # groups of 3 and 2 in a 3-stage ring
+    (2, 4, torch.bfloat16, 33),      # 4 pairs wrap the 3-stage ring; then 1
+    (2, 2, torch.bfloat16, 33),      # 2-stage ring; tail group of 1
+    (2, 4, torch.bfloat16, 197),     # 13 tiles a pair: rounds span 2 pairs
+    (1, 3, torch.bfloat16, 197),
+])
+def test_split_kernel_writes_nothing_past_the_tail(cuda, mode, block, dtype,
+                                                   s):
     """The output lies at the start of a larger buffer filled with a
     sentinel: the tail query tile (mode 0), the tail head group (mode 1:
     H = 5 in groups of 3) and the tail pair group (mode 2: 5 pairs in
-    groups of 3) write only the elements that exist."""
+    groups of 2, 3 or 4) write only the elements that exist."""
     from mcm_tpu_torch.ops import _build
     lib = _build.load("split_attention")
-    b, h, s, dh = 1, 5, 33, 16
-    q, k, v = _qkv((b, h, s, dh), torch.float32, cuda)
+    b, h, dh = 1, 5, 16
+    q, k, v = _qkv((b, h, s, dh), dtype, cuda)
     n = b * h * s * dh
-    buf = torch.full((n + 4096,), 7.0, device=cuda)
+    buf = torch.full((n + 4096,), 7.0, device=cuda, dtype=dtype)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     rc = lib.mcm_split_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 buf.data_ptr(), b, h, s, dh, mode, block, 0,
-                                 stream)
+                                 buf.data_ptr(), b, h, s, dh, mode, block,
+                                 int(dtype == torch.bfloat16), stream)
     torch.cuda.synchronize()
     assert rc == 0
     assert bool((buf[n:] == 7.0).all())
-    torch.testing.assert_close(buf[:n].view(b, h, s, dh),
-                               attention.split_attention_reference(q, k, v),
-                               rtol=2e-5, atol=2e-5)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(buf[:n].view(b, h, s, dh).float(),
+                               attention.split_attention_reference(
+                                   q, k, v).float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("impl", ["pallas", "pallas_mh", "pallas_batched"])
@@ -326,6 +366,25 @@ def test_split_kernel_reports_a_refused_launch(cuda):
     for name, _ in _SPLIT.values():
         with pytest.raises(RuntimeError, match="launch failed"):
             getattr(attention, name)(q, q, q)
+
+
+@pytest.mark.parametrize("name", ["bsd_attention", "pallas_attention",
+                                  "mh_attention", "batched_attention"])
+def test_kernels_take_rows_aligned_to_8_bytes_only(cuda, name):
+    """q/k/v views that start 8 bytes past a 16-byte boundary: the
+    tensor-core kernels stage them in 8-byte cp.async pieces."""
+    b, s, d = 2, 65, 256
+    n = b * s * d
+    bufs = _qkv((n + 4,), torch.bfloat16, cuda)
+    q, k, v = (t[4:].view(b, s, d) for t in bufs)
+    assert all(t.data_ptr() % 16 == 8 for t in (q, k, v))
+    fn = getattr(attention, name)
+    if name == "bsd_attention":
+        got, want = fn(q, k, v, 4), attention.bsd_attention_reference(q, k, v, 4)
+    else:
+        qh, kh, vh = (t.view(b, 4, s, 64) for t in (q, k, v))
+        got, want = fn(qh, kh, vh), attention.split_attention_reference(qh, kh, vh)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 def test_split_kernel_refuses_bad_shapes(cuda):
@@ -423,18 +482,20 @@ def test_encoder_attention_routes_flash(cuda):
 
 # -- the tools' kernels: bsd probe modes, packed bsd -----------------------------
 
+@pytest.mark.parametrize("s", [197, 50, 17])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("mode", ["full", "nosoftmax", "noexp", "bf16sm",
                                   "deferdiv"])
-def test_bsd_probe_kernel_matches_plain(cuda, mode, dtype):
-    """Each mode against its plain version at the tool's head width (64):
+def test_bsd_probe_kernel_matches_plain(cuda, mode, dtype, s):
+    """Each mode against its plain version at the tool's head width (64),
+    at ViT-B/16's S and at two that are no multiple of 16 (masked keys):
     bf16 at 2e-2 and fp32 at 2e-5 absolute (bf16sm rounds to bf16 whatever
     the input: 2e-2); nosoftmax, whose outputs reach |x| ≈ 50 here, at one
     bf16 ulp (bf16) or 2e-5 (fp32) of the output's largest |x|."""
     import math
 
     from mcm_tpu_torch.tools import bsd_probe
-    q, k, v = _qkv((8, 197, 768), dtype, cuda)
+    q, k, v = _qkv((8, s, 768), dtype, cuda)
     before = bsd_probe.probe.launches
     got = bsd_probe.probe(q, k, v, mode)
     torch.cuda.synchronize()
@@ -457,10 +518,11 @@ def test_bsd_probe_full_is_the_bsd_kernel(cuda):
                        attention.bsd_attention(q, k, v, 12))
 
 
+@pytest.mark.parametrize("s", [197, 17])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_packed_bsd_is_bit_identical_to_split(cuda, dtype):
+def test_packed_bsd_is_bit_identical_to_split(cuda, dtype, s):
     from mcm_tpu_torch.tools import qkv_probe
-    qkv = _qkv((4, 197, 3 * 768), dtype, cuda)[0]
+    qkv = _qkv((4, s, 3 * 768), dtype, cuda)[0]
     before = qkv_probe.bsd_fused.launches
     got = qkv_probe.bsd_fused(qkv, 768, 12)
     torch.cuda.synchronize()
