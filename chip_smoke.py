@@ -6,16 +6,20 @@
 1. Prints the card (``nvidia-smi``), builds every CUDA kernel of the
    port's paths from ``mcm_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel) and prints ptxas's register / shared-memory / spill lines,
-   and the count of tensor-core (``HMMA``) instructions in each library's
-   SASS (``cuobjdump -sass``): the attention libraries redesigned for
-   tensor cores must hold some and spill nothing.
+   and the count of tensor-core instructions in each library's SASS
+   (``cuobjdump -sass``: ``HMMA`` for ``mma.sync`` and wmma, ``HGMMA`` for
+   ``wgmma``): the libraries redesigned for tensor cores (bsd, bsd probe,
+   split-heads, flash, fused MLP) must hold some and spill nothing, and the
+   fused MLP must hold ``HGMMA`` that ptxas did not serialize.
 2. Kernel phase: each kernel against its plain PyTorch version on the card
    at its paths' shapes, with the tolerance stated; CUDA-event times of
    the kernel, the plain version and one PyTorch library call for the
    same function, beside the least time the card could take (the bound).
    bsd and ``batched_attention`` include bf16 cases at S = 600 (K/V of
    152 KB in shared memory) and S = 17 (a ragged 16-row tile);
-   the flash kernel includes an S > 512 case (JAX's multi-block branch);
+   the flash kernel includes fp32 and bf16 S = 600 cases (JAX's
+   multi-block branch), bf16 S = 17 and S = 256 with ``kv_len`` = 197 (the
+   shootout's masked case);
    each bsd probe mode is held against its plain version; the packed bsd
    launch (``bsd_fused``) must be bit-identical to the split one.
 3. Slice phase: the eval CLI (``mcm_tpu_torch.cli.eval_ood``) at the full
@@ -125,13 +129,15 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 # -- 1. build -----------------------------------------------------------------
 
-#: the libraries whose bf16 attention runs on tensor cores
-TENSOR_CORE_LIBS = ("bsd_attention", "bsd_probe", "split_attention")
+#: the libraries whose bf16 kernels run on tensor cores
+TENSOR_CORE_LIBS = ("bsd_attention", "bsd_probe", "split_attention",
+                    "flash_attention", "fused_mlp")
 
 
-def build() -> dict:
+def build() -> tuple:
     """Build every kernel source; return each library's count of HMMA
-    (tensor-core) instructions in its SASS."""
+    (``mma.sync``, wmma) and of HGMMA (``wgmma``) instructions in its
+    SASS."""
     from mcm_tpu_torch.ops import _build
     t = time.perf_counter()
     paths = _build.build_all()
@@ -139,21 +145,28 @@ def build() -> dict:
           f"{time.perf_counter() - t:.1f}s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if re.search(r"Compiling entry|registers|spill", line):
+            if re.search(r"Compiling entry|registers|spill|serialized", line):
                 print(f"[{name}] {line.strip()}")
         if name in TENSOR_CORE_LIBS:
             spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
             check(all(n == "0" for n in spills), f"{name}: ptxas spills")
+            # ptxas waits after every wgmma when it cannot track the
+            # asynchronous accumulators (C7512, C7515)
+            check("serialized" not in log, f"{name}: wgmma serialized")
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    hmma = {}
+    hmma, hgmma = {}, {}
     for name, path in zip(_build.SOURCES, paths):
         sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
                               text=True, check=True).stdout
         hmma[name] = len(re.findall(r"\bHMMA\.", sass))
-        print(f"[{name}] HMMA instructions in SASS: {hmma[name]}", flush=True)
-    check(all(hmma[n] > 0 for n in TENSOR_CORE_LIBS),
-          f"no HMMA in a tensor-core attention library: {hmma}")
-    return hmma
+        hgmma[name] = len(re.findall(r"\bHGMMA\.", sass))
+        print(f"[{name}] tensor-core instructions in SASS: HMMA {hmma[name]}, "
+              f"HGMMA {hgmma[name]}", flush=True)
+    check(all(hmma[n] + hgmma[n] > 0 for n in TENSOR_CORE_LIBS),
+          f"no tensor-core instruction in a tensor-core library: HMMA {hmma}, "
+          f"HGMMA {hgmma}")
+    check(hgmma["fused_mlp"] > 0, "no HGMMA (wgmma) in the fused MLP library")
+    return hmma, hgmma
 
 
 # -- 2. kernel phase -------------------------------------------------------------
@@ -273,35 +286,40 @@ SPLIT_KERNELS = {"pallas_attention": "pallas", "mh_attention": "pallas_mh",
 ATTN_KNOBS = dict(SPLIT_KERNELS, flash_attention="flash")
 
 
-def heads_case(name, b, h, s, dh, dtype, main_path: bool) -> dict:
+def heads_case(name, b, h, s, dh, dtype, main_path: bool,
+               kv_len=None) -> dict:
     """A kernel on [B, H, S, Dh] heads (split-heads or flash) against its
-    plain version."""
+    plain version; ``kv_len`` (flash only) bounds the keys."""
     import torch.nn.functional as F
 
     from mcm_tpu_torch.ops import attention
     fn = getattr(attention, name)
     plain = (attention.flash_attention_reference if name == "flash_attention"
              else attention.split_attention_reference)
+    kv = {} if kv_len is None else {"kv_len": kv_len}
+    n_kv = s if kv_len is None else kv_len
     gen = torch.Generator(device="cuda").manual_seed(b * 1000 + s)
     q, k, v = (torch.randn((b, h, s, dh), generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
-    got = fn(q, k, v)
-    want = plain(q, k, v)
+    got = fn(q, k, v, **kv)
+    want = plain(q, k, v, **kv)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = BSD_TOL[dtype]
     check(math.isfinite(err) and err <= tol,
-          f"{name} {(b, h, s, dh, str(dtype))}: max |kernel - plain| "
-          f"{err} > {tol}")
-    nbytes = 4 * b * h * s * dh * q.element_size()
-    bms, by = bound(nbytes, 4.0 * b * h * s * s * dh, dtype)
+          f"{name} {(b, h, s, dh, str(dtype))} kv_len={n_kv}: max |kernel - "
+          f"plain| {err} > {tol}")
+    # q and o of S rows, k and v of the kv_len rows read
+    nbytes = 2 * b * h * (s + n_kv) * dh * q.element_size()
+    bms, by = bound(nbytes, 4.0 * b * h * s * n_kv * dh, dtype)
+    kl, vl = k[:, :, :n_kv], v[:, :, :n_kv]
     return {"kernel": name, "attn_impl": ATTN_KNOBS[name],
-            "case": [b, h, s, dh, str(dtype)],
+            "case": [b, h, s, dh, str(dtype)] + ([n_kv] if kv else []),
             "main_path_shape": main_path, "max_abs_err": err, "tol": tol,
-            "kernel_ms": cuda_ms(lambda: fn(q, k, v)),
-            "plain_ms": cuda_ms(lambda: plain(q, k, v), iters=5),
+            "kernel_ms": cuda_ms(lambda: fn(q, k, v, **kv)),
+            "plain_ms": cuda_ms(lambda: plain(q, k, v, **kv), iters=5),
             "library_ms": cuda_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v)),
+                lambda: F.scaled_dot_product_attention(q, kl, vl)),
             "bound_ms": bms, "bound_by": by, "launches_per_batch": 12}
 
 
@@ -412,9 +430,13 @@ def kernel_phase() -> dict:
         if row["main_path_shape"]:
             main["fused_mlp"] = row
     for name in ATTN_KNOBS:
-        # flash also runs S = 600, which JAX pads past 512 (its block
-        # loop); batched_attention S = 600 (a one-stage ring) and S = 17
-        extra = {"flash_attention": ((2, 4, 600, 64, torch.float32, False),),
+        # flash also runs S = 600, which JAX pads past 512 (its block loop,
+        # on tensor cores in bf16), S = 17 and, below, S = 256 over 197
+        # keys; batched_attention S = 600 (a one-stage ring) and S = 17
+        extra = {"flash_attention": ((2, 4, 600, 64, torch.float32, False),
+                                     (16, 12, 600, 64, torch.bfloat16, False),
+                                     (BATCH, 12, 17, 64, torch.bfloat16,
+                                      False)),
                  "batched_attention": (
                      (16, 12, 600, 64, torch.bfloat16, False),
                      (BATCH, 12, 17, 64, torch.bfloat16, False))}.get(name, ())
@@ -426,6 +448,8 @@ def kernel_phase() -> dict:
             emit(row)
             if row["main_path_shape"]:
                 main[name] = row
+    emit(heads_case("flash_attention", BATCH, 12, 256, 64, torch.bfloat16,
+                    False, kv_len=197))
     from mcm_tpu_torch.tools.bsd_probe import MODES
     modes = []
     for mode in MODES:
@@ -776,7 +800,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     walls = {}
     t = time.perf_counter()
-    hmma = build()
+    hmma, hgmma = build()
     walls["build"] = time.perf_counter() - t
     t = time.perf_counter()
     main_rows = kernel_phase()
@@ -803,6 +827,7 @@ def main() -> int:
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "shape": row["case"],
                  "sass_hmma": hmma[os.path.basename(source)[:-3]],
+                 "sass_hgmma": hgmma[os.path.basename(source)[:-3]],
                  "status": "built; within tolerance of its plain "
                            "version; launched on its path"}
         if "modes" in row:

@@ -1,8 +1,8 @@
 // Helpers shared by the attention kernels (bsd_attention.cuh,
 // split_attention.cu, flash_attention.cu): element conversions, raw vector
 // loads for staging K/V in shared memory, the padded K-row layout of the
-// CUDA-core bodies (fp32, and bf16 below a head dim of 16), warp reductions
-// and the head-dim dispatch.  The tensor-core bodies of bsd and split-heads
+// CUDA-core bodies (fp32, and bf16 below a head dim of 16), warp reductions,
+// the card's shared-memory limits and the head-dim dispatch.  The tensor-core bodies of bsd and split-heads
 // attention in bf16 (mma.sync over cp.async-staged, swizzled K/V tiles) are
 // in attention_mma.cuh, which builds on this header.  Each .cu file that
 // includes it is its own shared library, so the anonymous namespace gives
@@ -92,6 +92,23 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// The card's shared memory: what a block may have, what an SM has, and
+// what the runtime reserves for each block (all 0 if they cannot be read).
+struct SmemLimits {
+  int block = 0, sm = 0, reserved = 0;
+};
+
+inline SmemLimits smem_limits() {
+  SmemLimits m;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&m.block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) ||
+      cudaDeviceGetAttribute(&m.sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) ||
+      cudaDeviceGetAttribute(&m.reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev))
+    return SmemLimits{};
+  return m;
 }
 
 // f(std::integral_constant<int, DH>{}) for a head dim that is a power of two

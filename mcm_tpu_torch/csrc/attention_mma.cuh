@@ -1,8 +1,9 @@
 // Tensor-core attention for Hopper in bf16: the tile routine and the
-// block routine that both the bsd body (bsd_attention.cuh) and the
-// split-heads body (split_attention.cu) run at head dims 16 to 128.
+// block routine that the bsd body (bsd_attention.cuh), the split-heads body
+// (split_attention.cu) and the flash body (flash_attention.cu) run at head
+// dims 16 to 128.
 //
-// Numerics are the TPU kernels' (mcm_tpu/ops/attention.py:52-64,
+// Numerics (kScaledQ) are the TPU kernels' (mcm_tpu/ops/attention.py:52-64,
 // :112-130, :161-199):
 //   * q is scaled in fp32 and rounded to bf16 once;
 //   * logits are fp32 sums of bf16 products (mma.sync m16n8k16, fp32
@@ -15,6 +16,11 @@
 //   * PV accumulates in fp32; the output is rounded to bf16.
 // The softmax between the two products follows the mode (SoftmaxMode);
 // every mode but kFull exists for the timing probes of bsd_probe.cu.
+// The flash body takes jax's TPU flash kernel's numerics instead
+// (TileNumerics): q enters the product unscaled and the fp32 logits are
+// multiplied by the scale after it; kFlashSingle then runs the two passes
+// below (jax's single whole-sequence block), kFlashBlocks one pass over
+// 128-key blocks with a running max and sum (jax's block loop, output_blocks).
 //
 // The tile: one warp owns 16 query rows of one (image, head) pair.  Its q
 // rows live in registers as the A fragments of the QKᵀ product (Dh/16
@@ -46,7 +52,9 @@
 // rows one ldmatrix matrix reads fall in 8 different bank groups, with no
 // padding (which is what lets S = 600 at Dh = 64 fit: 152 KB).  Keys past S
 // are masked to −inf in the logits and their p is 0; V's rows past S are
-// zeroed, since 0 · NaN would not be 0.
+// zeroed, since 0 · NaN would not be 0.  The keys may stop short of the
+// query rows (attend_pairs: rows [0, S), keys [0, kv)); the tiles then
+// hold kv rows and the mask is at kv.
 //
 // The block: one routine (attend_pairs) walks a list of pairs and a range
 // of query rows.  Its WARPS warps are spread over (pair, 16-row tile) work
@@ -73,6 +81,13 @@ constexpr bool kTensorCores = std::is_same<T, bf16>::value && DH >= 16;
 
 // the softmax between the two products (see bsd_attention.cuh)
 enum SoftmaxMode : int { kFull = 0, kNoSoftmax = 1, kNoExp = 2, kBf16Sm = 3, kDeferDiv = 4 };
+
+// where the scale goes and how the keys are walked
+enum TileNumerics : int {
+  kScaledQ = 0,      // q·scale rounded to bf16 into the A fragments; two passes
+  kFlashSingle = 1,  // fp32 logits · scale; two passes (jax's single-step kernel)
+  kFlashBlocks = 2,  // fp32 logits · scale; 128-key blocks (jax's block loop)
+};
 
 // -- PTX --------------------------------------------------------------------------
 
@@ -191,20 +206,22 @@ __device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src, int S,
 
 // Each thread holds two rows of the tile, h = 0 and 1: rows g and g + 8
 // (g = lane / 4), in the C-fragment layout of mma.m16n8k16.
-template <int DH, int MODE>
+template <int DH, int MODE, int NUM = kScaledQ>
 struct MmaTile {
   static constexpr int kKSteps = DH / 16;   // k-steps of QKᵀ
   static constexpr int kDimTiles = DH / 8;  // n-tiles of PV
   using L = MmaLayout<DH>;
 
-  uint32_t qf[kKSteps][4];  // A fragments of q·scale in bf16
+  uint32_t qf[kKSteps][4];  // A fragments of q (kScaledQ: q·scale) in bf16
   float m[2], l[2];         // each row's max and sum
   float d[2], rd[2];        // the divisor of p and its reciprocal
+  float sc;                 // the logits' scale (flash numerics)
 
   // q rows [r0, r0 + 16) (row r at q + r·row_stride), rows ≥ r_end as 0
   __device__ __forceinline__ void load_q(const bf16* q, long long row_stride, int r0, int r_end,
                                          float scale, int lane) {
     const int g = lane >> 2, t = lane & 3;
+    sc = scale;
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk)
 #pragma unroll
@@ -213,13 +230,18 @@ struct MmaTile {
         const int c = 16 * kk + 2 * t + ((e >> 1) << 3);
         uint32_t raw = 0u;
         if (r < r_end) raw = *reinterpret_cast<const uint32_t*>(q + r * row_stride + c);
-        qf[kk][e] = pack_bf16(__uint_as_float(raw << 16) * scale,
-                              __uint_as_float(raw & 0xffff0000u) * scale);
+        if constexpr (NUM == kScaledQ) {
+          qf[kk][e] = pack_bf16(__uint_as_float(raw << 16) * scale,
+                                __uint_as_float(raw & 0xffff0000u) * scale);
+        } else {
+          qf[kk][e] = raw;  // two bf16 values, the lower column in the low half
+        }
       }
   }
 
   // logits of keys [c0, c0 + 16): s[j][e] is row e >> 1, key
-  // c0 + 8j + 2t + (e & 1) (t = lane % 4); keys ≥ S are −inf
+  // c0 + 8j + 2t + (e & 1) (t = lane % 4); keys ≥ S are −inf.  Flash
+  // numerics scale the fp32 sum here, before the mask, as jax does.
   __device__ __forceinline__ void logits(float (&s)[2][4], uint32_t ks, int c0, int S,
                                          int lane) const {
 #pragma unroll
@@ -239,6 +261,7 @@ struct MmaTile {
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        if constexpr (NUM != kScaledQ) s[j][e] = __fmul_rn(s[j][e], sc);  // no FMA contraction
         if constexpr (MODE == kBf16Sm) s[j][e] = round_to<bf16>(s[j][e]);
         if (c0 + 16 > S && c0 + 8 * j + 2 * (lane & 3) + (e & 1) >= S) s[j][e] = -INFINITY;
       }
@@ -379,6 +402,110 @@ struct MmaTile {
       }
     }
   }
+
+  // jax's flash block loop (kFlashBlocks), one pass over blocks of 128 keys
+  // (flash_attention.py:439-473).  A block's logits stay in registers
+  // (8 chunks, 64 a thread) while its row max is formed; then
+  //   m_next = max(m, rowmax(s));  p = expf(s − m_next), rounded to bf16
+  //   l_corr = expf(m − m_next)·l;  l_next = Σp + l_corr
+  //   O = O·(l_corr·l_inv) + (p·v)·l_inv,  l_inv = 1 / l_next (1 if 0)
+  // with every product and sum of the update rounded on its own (no FMA
+  // contraction), and O stored to rows [r0, r_end) at o + r·row_stride.
+  __device__ __forceinline__ void output_blocks(uint32_t ks, uint32_t vs, int S, bf16* o,
+                                                long long row_stride, int r0, int r_end,
+                                                int lane) {
+    constexpr int kChunks = 8;  // 16-key chunks of a 128-key block
+    float acc[kDimTiles][4];
+#pragma unroll
+    for (int n = 0; n < kDimTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    const int key_lane = (lane & 7) + (((lane >> 3) & 1) << 3);
+    const int chunk_lane = lane >> 4;
+    for (int b0 = 0; b0 < S; b0 += 16 * kChunks) {
+      float s[kChunks][2][4];
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (b0 + 16 * c >= S) continue;
+        logits(s[c], ks, b0 + 16 * c, S, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[c][j][e]);
+      }
+      float m_next[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) m_next[h] = fmaxf(m[h], quad_max(mx[h]));
+      uint32_t a[kChunks][4];  // p in bf16, the A fragments of PV
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (b0 + 16 * c >= S) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[c][j][e] = expf(s[c][j][e] - m_next[e >> 1]);
+            sum[e >> 1] += s[c][j][e];
+          }
+        a[c][0] = pack_bf16(s[c][0][0], s[c][0][1]);
+        a[c][1] = pack_bf16(s[c][0][2], s[c][0][3]);
+        a[c][2] = pack_bf16(s[c][1][0], s[c][1][1]);
+        a[c][3] = pack_bf16(s[c][1][2], s[c][1][3]);
+      }
+      float f[2], l_inv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float l_corr = __fmul_rn(expf(m[h] - m_next[h]), l[h]);
+        const float l_next = __fadd_rn(quad_sum(sum[h]), l_corr);
+        l_inv[h] = l_next == 0.f ? 1.f : 1.f / l_next;
+        f[h] = __fmul_rn(l_corr, l_inv[h]);
+        m[h] = m_next[h];
+        l[h] = l_next;
+      }
+      // p·v of at most 64 output columns at a time: at Dh = 128 the partial
+      // sums take 32 registers a thread beside O's 64, not 64 more (ptxas
+      // spills there otherwise)
+      constexpr int kGroup = kDimTiles < 8 ? kDimTiles : 8;
+#pragma unroll
+      for (int n0 = 0; n0 < kDimTiles; n0 += kGroup) {
+        float pv[kGroup][4];
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          if (b0 + 16 * c >= S) continue;
+#pragma unroll
+          for (int nn = 0; nn < kGroup / 2; ++nn) {
+            uint32_t b[4];
+            ldsm_x4_trans(vs + L::offset(b0 + 16 * c + key_lane, n0 + 2 * nn + chunk_lane), b);
+            mma_bf16(pv[2 * nn], a[c], b[0], b[1]);
+            mma_bf16(pv[2 * nn + 1], a[c], b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[n0 + n][e] = __fadd_rn(__fmul_rn(acc[n0 + n][e], f[e >> 1]),
+                                       __fmul_rn(pv[n][e], l_inv[e >> 1]));
+      }
+    }
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      if (r >= r_end) continue;
+      bf16* orow = o + r * row_stride + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kDimTiles; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) = pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+  }
 };
 
 // -- the block: a list of pairs, a range of query rows -----------------------------
@@ -399,30 +526,30 @@ struct PairLayout {
   }
 };
 
-// Query rows [r_begin, r_end) of pairs [pair_begin, pair_begin + n_pairs)
-// through a ring of NST stages in smem (NST · mma_stage_bytes<DH>(S)).
-// Every thread of the block (WARPS warps) calls it; vec16 says that every
-// K/V row is 16-byte aligned.
-template <int DH, int MODE, int NST, int WARPS>
+// Query rows [r_begin, r_end) of pairs [pair_begin, pair_begin + n_pairs),
+// each of S rows, over their keys [0, kv), through a ring of NST stages in
+// smem (NST · mma_stage_bytes<DH>(kv)).  Every thread of the block (WARPS
+// warps) calls it; vec16 says that every K/V row is 16-byte aligned.
+template <int DH, int MODE, int NST, int WARPS, int NUM = kScaledQ>
 __device__ __forceinline__ void attend_pairs(const bf16* __restrict__ q,
                                              const bf16* __restrict__ k,
                                              const bf16* __restrict__ v, bf16* __restrict__ o,
-                                             int S, long long pair_begin, int n_pairs,
+                                             int S, int kv, long long pair_begin, int n_pairs,
                                              int r_begin, int r_end, PairLayout lay,
                                              float scale, bool vec16, unsigned char* smem) {
   using L = MmaLayout<DH>;
-  const int S16 = (S + 15) & ~15;
-  const uint32_t tile_bytes = (uint32_t)S16 * DH * sizeof(bf16);
+  const int kv16 = (kv + 15) & ~15;
+  const uint32_t tile_bytes = (uint32_t)kv16 * DH * sizeof(bf16);
   const uint32_t base = smem_addr(smem);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  // V rows [S, S16) of every stage: zero (p is 0 there, but 0 · NaN is not)
-  for (int i = threadIdx.x; i < NST * (S16 - S) * L::kChunks; i += blockDim.x) {
-    const int st = i / ((S16 - S) * L::kChunks);
-    const int rest = i % ((S16 - S) * L::kChunks);
+  // V rows [kv, kv16) of every stage: zero (p is 0 there, but 0 · NaN is not)
+  for (int i = threadIdx.x; i < NST * (kv16 - kv) * L::kChunks; i += blockDim.x) {
+    const int st = i / ((kv16 - kv) * L::kChunks);
+    const int rest = i % ((kv16 - kv) * L::kChunks);
     *reinterpret_cast<uint4*>(smem + (size_t)st * 2 * tile_bytes + tile_bytes +
-                              L::offset(S + rest / L::kChunks, rest % L::kChunks)) =
+                              L::offset(kv + rest / L::kChunks, rest % L::kChunks)) =
         make_uint4(0u, 0u, 0u, 0u);
   }
 
@@ -430,9 +557,9 @@ __device__ __forceinline__ void attend_pairs(const bf16* __restrict__ q,
   auto fetch = [&](int i) {
     const uint32_t ks = base + (uint32_t)(i % NST) * 2 * tile_bytes;
     const long long off = lay.in_off(pair_begin + i, S, DH);
-    stage_rows<DH>(ks, k + off, S, lay.in_stride, vec16);
+    stage_rows<DH>(ks, k + off, kv, lay.in_stride, vec16);
     cp_async_commit();
-    stage_rows<DH>(ks + tile_bytes, v + off, S, lay.in_stride, vec16);
+    stage_rows<DH>(ks + tile_bytes, v + off, kv, lay.in_stride, vec16);
     cp_async_commit();
   };
 
@@ -455,19 +582,27 @@ __device__ __forceinline__ void attend_pairs(const bf16* __restrict__ q,
     const uint32_t ks = base + (uint32_t)(i % NST) * 2 * tile_bytes;
     const long long off = lay.in_off(pair_begin + i, S, DH);
 
-    MmaTile<DH, MODE> tile;
-    // pending after K of pair p_hi: its V, and K and V of each later pair
-    cp_async_wait_at_most(2 * (fetched - 1 - p_hi) + 1);
-    __syncthreads();
-    if (mine) {
-      tile.load_q(q + off, lay.in_stride, r0, r_end, scale, lane);
-      tile.stats(ks, S, lane);
-    }
-    cp_async_wait_at_most(2 * (fetched - 1 - p_hi));
-    __syncthreads();
-    if (mine) {
-      tile.output(ks, ks + tile_bytes, S, o + lay.out_off(pair_begin + i, S, DH),
-                  lay.out_stride, r0, r_end, lane);
+    MmaTile<DH, MODE, NUM> tile;
+    bf16* out = o + lay.out_off(pair_begin + i, S, DH);
+    if constexpr (NUM == kFlashBlocks) {
+      // one pass: K and V of every pair up to p_hi
+      cp_async_wait_at_most(2 * (fetched - 1 - p_hi));
+      __syncthreads();
+      if (mine) {
+        tile.load_q(q + off, lay.in_stride, r0, r_end, scale, lane);
+        tile.output_blocks(ks, ks + tile_bytes, kv, out, lay.out_stride, r0, r_end, lane);
+      }
+    } else {
+      // pending after K of pair p_hi: its V, and K and V of each later pair
+      cp_async_wait_at_most(2 * (fetched - 1 - p_hi) + 1);
+      __syncthreads();
+      if (mine) {
+        tile.load_q(q + off, lay.in_stride, r0, r_end, scale, lane);
+        tile.stats(ks, kv, lane);
+      }
+      cp_async_wait_at_most(2 * (fetched - 1 - p_hi));
+      __syncthreads();
+      if (mine) tile.output(ks, ks + tile_bytes, kv, out, lay.out_stride, r0, r_end, lane);
     }
     __syncthreads();  // the stages of finished pairs may be refilled
     t0 = t1;
@@ -475,5 +610,6 @@ __device__ __forceinline__ void attend_pairs(const bf16* __restrict__ q,
       fetch(fetched);
   }
 }
+
 
 }  // namespace

@@ -69,7 +69,7 @@ bsd_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o, int S, int heads,
                          long long in_stride, long long out_stride, float scale, bool vec16) {
   extern __shared__ __align__(16) unsigned char smem[];
-  attend_pairs<DH, MODE, 1, kWarps>(q, k, v, o, S, blockIdx.x, 1, 0, S,
+  attend_pairs<DH, MODE, 1, kWarps>(q, k, v, o, S, S, blockIdx.x, 1, 0, S,
                                     PairLayout{in_stride, out_stride, heads}, scale, vec16,
                                     smem);
 }

@@ -102,7 +102,7 @@ split_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            bool vec16) {
   extern __shared__ __align__(16) unsigned char smem[];
   const BlockWork w = block_work(blockIdx.x, n_pairs, S, mode, p1, p2);
-  attend_pairs<DH, kFull, NST, WARPS>(q, k, v, o, S, w.begin, (int)(w.end - w.begin),
+  attend_pairs<DH, kFull, NST, WARPS>(q, k, v, o, S, S, w.begin, (int)(w.end - w.begin),
                                       w.r_begin, w.r_end, PairLayout{DH, DH, 1}, scale, vec16,
                                       smem);
 }
@@ -206,23 +206,6 @@ size_t smem_bytes(int S, int warps = kWarps) {
     size_t kv = ((size_t)S * (Sh::kKStride + Sh::kVStride) * sizeof(T) + 15) & ~(size_t)15;
     return kv + (size_t)warps * S * sizeof(float);
   }
-}
-
-// The card's shared memory: what a block may have, what an SM has, and
-// what the runtime reserves for each block (all 0 if they cannot be read).
-struct SmemLimits {
-  int block = 0, sm = 0, reserved = 0;
-};
-
-SmemLimits smem_limits() {
-  SmemLimits m;
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&m.block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) ||
-      cudaDeviceGetAttribute(&m.sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) ||
-      cudaDeviceGetAttribute(&m.reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev))
-    return SmemLimits{};
-  return m;
 }
 
 // Stages of the tensor-core ring for a block of `pairs` pairs: `most`,

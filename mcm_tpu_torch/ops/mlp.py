@@ -68,8 +68,9 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     through the kernel; on a CPU tensor, through its plain version.
 
     ``block_m`` is the JAX kernel's row tile, taken for the same call
-    surface; the CUDA kernel's row tile (16 or 32 rows) is set by its
-    register budget, and neither changes the result.  Raises on what the
+    surface; the CUDA kernels' row tiles (64 rows for ``wgmma``, 16 or 32
+    for wmma) are set by their register budgets, and neither changes the
+    result.  Raises on what the
     kernel does not take (never falls back)."""
     _check(x, w1, b1, w2, b2, act, block_m)
     tensors = (x, w1, b1, w2, b2)

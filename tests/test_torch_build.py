@@ -36,15 +36,17 @@ def test_inputs_follow_includes_through_headers():
     assert _build._inputs("split_attention") == [
         "split_attention.cu", "attention_common.cuh", "attention_mma.cuh"]
     assert _build._inputs("flash_attention") == [
-        "flash_attention.cu", "attention_common.cuh"]
+        "flash_attention.cu", "attention_common.cuh", "attention_mma.cuh"]
     assert _build._inputs("mcm_score") == ["mcm_score.cu"]
+    assert _build._inputs("fused_mlp") == ["fused_mlp.cu"]
 
 
 @pytest.mark.parametrize("header,changed", [
     ("bsd_attention.cuh", {"bsd_attention", "bsd_probe"}),
     ("attention_common.cuh", {"bsd_attention", "bsd_probe",
                               "split_attention", "flash_attention"}),
-    ("attention_mma.cuh", {"bsd_attention", "bsd_probe", "split_attention"}),
+    ("attention_mma.cuh", {"bsd_attention", "bsd_probe", "split_attention",
+                           "flash_attention"}),
 ])
 def test_header_edit_changes_the_library_name(csrc, header, changed):
     before = {n: _build._lib_path(n) for n in _build.SOURCES}

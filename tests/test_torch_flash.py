@@ -48,10 +48,13 @@ def test_flash_plain_matches_jax_fp32(rng, shape):
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 197, 64), (1, 2, 120, 64)])
+@pytest.mark.parametrize("shape", [(2, 4, 197, 64), (1, 2, 120, 64),
+                                   (1, 2, 129, 64), (1, 2, 512, 64)])
 def test_flash_plain_matches_jax_bf16(rng, shape):
     """bf16 inputs: both round p / l to bf16 before PV; outputs within one
-    bf16 ulp at |x| ≤ 4 (1.6e-2)."""
+    bf16 ulp at |x| ≤ 4 (1.6e-2).  S = 129 and 512 pad to 256 and 512 keys,
+    one whole-sequence block each: JAX's single step, the numerics the
+    tensor-core flash kernel computes (the block loop starts past 512)."""
     q, k, v = _arrays(rng, shape)
     got = attention.flash_attention_reference(
         *(torch.from_numpy(a).bfloat16() for a in (q, k, v)))
@@ -84,6 +87,21 @@ def test_flash_kv_len_is_jax_padding(rng):
     got = attention.flash_attention_reference(*pad, kv_len=197)[:, :, :197]
     np.testing.assert_allclose(got.numpy(), _jax_flash((q, k, v)),
                                rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kv_len_is_jax_padding_bf16(rng):
+    """bf16 at S = 256 with the keys past 197 masked (the shootout's
+    ``flash_pad256_mask``): JAX pads 197 to one 256-key block, rounds
+    p / l to bf16 and masks the tail keys; the plain version with
+    ``kv_len = 197`` agrees within one bf16 ulp at |x| ≤ 4 (1.6e-2)."""
+    q, k, v = _arrays(rng, (2, 2, 197, 64))
+    pad = [torch.nn.functional.pad(torch.from_numpy(a), (0, 0, 0, 59))
+           .bfloat16() for a in (q, k, v)]
+    got = attention.flash_attention_reference(*pad, kv_len=197)[:, :, :197]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               _jax_flash((q, k, v), jnp.bfloat16),
+                               rtol=1.6e-2, atol=1.6e-2)
 
 
 def test_flash_wrapper_on_cpu_is_the_plain_version(rng):

@@ -189,13 +189,20 @@ def _mlp_inputs(m, d, f, dtype, device, seed=0):
 @pytest.mark.parametrize("m,d,f,dtype,tensor_cores", [
     (1000, 768, 3072, torch.bfloat16, True),    # ViT-B/16 vision
     (333, 512, 2048, torch.bfloat16, True),     # text width, tail rows
-    (45, 1024, 4096, torch.bfloat16, True),     # ViT-L/14: 16-row tiles
+    (45, 1024, 4096, torch.bfloat16, True),     # ViT-L/14: split columns
     (37, 384, 1536, torch.bfloat16, True),      # golden config
     (70, 64, 256, torch.bfloat16, False),       # D % 128 != 0
     (50, 128, 96, torch.bfloat16, False),       # F not a chunk multiple
     (100, 768, 3072, torch.float32, False),     # parity mode
     (70, 64, 256, torch.float32, False),
-])
+# M around the wgmma kernel's 64-row tile (a tile of one row, a tail tile)
+] + [(m, 768, 3072, torch.bfloat16, True) for m in (1, 63, 64, 65, 127, 129)]
+# each D of the tensor-core gate: wgmma at 384 / 512 / 768 / 1024, wmma
+# otherwise
+  + [(70, d, 4 * d, torch.bfloat16, True) for d in range(128, 1025, 128)]
+# 5 chunks of 8 weight stages: 40 stages wrap the 6-stage ring unevenly
+  + [(130, 512, 320, torch.bfloat16, True), (65, 384, 320, torch.bfloat16, True),
+     (129, 1024, 320, torch.bfloat16, True)])
 @pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
 def test_fused_mlp_kernel_matches_plain(cuda, m, d, f, dtype, tensor_cores,
                                         act):
@@ -213,6 +220,44 @@ def test_fused_mlp_kernel_matches_plain(cuda, m, d, f, dtype, tensor_cores,
     assert float(want.float().abs().max()) < 8
     tol = 3.2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_fused_mlp_smem_bytes_follow_the_design(cuda):
+    """The dispatch: bf16 at D = 384, 512, 768, 1024 with F a multiple of
+    64 takes the wgmma kernel (1 KB of alignment slack and 256 bytes of
+    barriers, the [64, D] x tile, two [64, 64] h tiles and a ring of up to
+    six weight stages of 32·D bytes, 32·D/2 at D = 1024 where two blocks
+    split the output columns, within 227 KB); other bf16 shapes with D a
+    multiple of 128 up to 1024 the wmma kernel; the rest the CUDA-core one
+    (x tile and accumulator in fp32 and an h chunk)."""
+    from mcm_tpu_torch.ops import _build
+    lib = _build.load("fused_mlp")
+
+    def wgmma(d):
+        fixed = 1024 + 64 * d * 2 + 2 * 64 * 64 * 2 + 256
+        stage = 32 * d // (2 if d > 768 else 1)
+        return fixed + min(6, (232448 - fixed) // stage) * stage
+
+    def wmma(d):
+        bmf = 2 if d <= 768 else 1
+        rows, hld = 16 * bmf, 128 // bmf + 8
+        return rows * (d + 8) * 2 + rows * hld * 2 + 8 * 256 * 4
+
+    def simt(d):
+        return 16 * d * 2 * 4 + 16 * 32 * 4
+
+    assert [wgmma(d) // 1024 for d in (384, 512, 768, 1024)] == [137, 177, 209,
+                                                                  225]
+    for d in range(128, 1025, 128):
+        for f in (128, 640, 4 * d):
+            want = wgmma(d) if d in (384, 512, 768, 1024) else wmma(d)
+            assert lib.mcm_fused_mlp_smem_bytes(d, f, 1) == want
+            assert lib.mcm_fused_mlp_tensor_cores(d, f, 1) == 1
+            assert lib.mcm_fused_mlp_smem_bytes(d, f, 0) == simt(d)
+            assert lib.mcm_fused_mlp_tensor_cores(d, f, 0) == 0
+    for d, f in ((768, 96), (64, 256), (1152, 4608)):
+        assert lib.mcm_fused_mlp_tensor_cores(d, f, 1) == 0
+        assert lib.mcm_fused_mlp_smem_bytes(d, f, 1) == simt(d)
 
 
 def test_fused_mlp_refuses_bad_inputs(cuda):
@@ -408,7 +453,12 @@ def test_split_kernel_refuses_bad_shapes(cuda):
     ((1, 2, 129, 64), torch.float32),      # a tile of one key
     ((2, 3, 33, 16), torch.float32),       # Dh < 32
     ((2, 2, 300, 128), torch.bfloat16),    # Dh = 128
-])
+# bf16 on both sides of the tensor-core tile's edges (16-row tiles, 16-key
+# chunks, 128-key blocks), of JAX's branch (S_pad 512 / 640) and of the
+# shared memory (Dh = 128 at S ≥ 449 takes the CUDA-core body)
+] + [((2, 3, s, dh), torch.bfloat16)
+     for dh in (16, 32, 64, 128)
+     for s in (1, 16, 17, 128, 129, 197, 257, 512, 513, 600)])
 def test_flash_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = _qkv(shape, dtype, cuda)
     before = attention.flash_attention.launches
@@ -420,35 +470,43 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("s,kv_len", [(256, 197), (256, 1), (640, 600)])
-def test_flash_kernel_kv_len(cuda, s, kv_len):
+@pytest.mark.parametrize("s,kv_len,dtype", [
+    (256, 197, torch.float32), (256, 1, torch.float32), (640, 600, torch.float32),
+    (256, 197, torch.bfloat16), (640, 600, torch.bfloat16)])
+def test_flash_kernel_kv_len(cuda, s, kv_len, dtype):
     """Keys at or past kv_len are skipped: the padded rows of the
-    shootout's ``flash_pad256_mask`` and JAX's multi-block masking."""
-    q, k, v = _qkv((2, 3, s, 64), torch.float32, cuda)
+    shootout's ``flash_pad256_mask`` (JAX's single step) and JAX's
+    multi-block masking."""
+    q, k, v = _qkv((2, 3, s, 64), dtype, cuda)
     got = attention.flash_attention(q, k, v, kv_len=kv_len)
     want = attention.flash_attention_reference(q, k, v, kv_len)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("s", [33, 197])
-def test_flash_kernel_writes_nothing_past_the_output(cuda, s):
+@pytest.mark.parametrize("s,dtype", [
+    (33, torch.float32), (197, torch.float32),
+    (33, torch.bfloat16), (197, torch.bfloat16), (600, torch.bfloat16)])
+def test_flash_kernel_writes_nothing_past_the_output(cuda, s, dtype):
     """The output lies at the start of a larger buffer filled with a
     sentinel: the tail query tile writes only the rows that exist."""
     from mcm_tpu_torch.ops import _build
     lib = _build.load("flash_attention")
     b, h, dh = 2, 3, 64
-    q, k, v = _qkv((b, h, s, dh), torch.float32, cuda)
+    q, k, v = _qkv((b, h, s, dh), dtype, cuda)
     n = b * h * s * dh
-    buf = torch.full((n + 4096,), 7.0, device=cuda)
+    buf = torch.full((n + 4096,), 7.0, device=cuda, dtype=dtype)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     rc = lib.mcm_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 buf.data_ptr(), b, h, s, dh, s, 0, stream)
+                                 buf.data_ptr(), b, h, s, dh, s,
+                                 int(dtype == torch.bfloat16), stream)
     torch.cuda.synchronize()
     assert rc == 0
     assert bool((buf[n:] == 7.0).all())
-    torch.testing.assert_close(buf[:n].view(b, h, s, dh),
-                               attention.flash_attention_reference(q, k, v),
-                               rtol=2e-5, atol=2e-5)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(buf[:n].view(b, h, s, dh).float(),
+                               attention.flash_attention_reference(
+                                   q, k, v).float(), rtol=tol, atol=tol)
 
 
 def test_flash_kernel_refuses_a_bad_kv_len(cuda):

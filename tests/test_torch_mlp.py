@@ -58,6 +58,30 @@ def test_plain_matches_pallas_kernel_bf16(rng, act):
                                rtol=1.6e-2, atol=1.6e-2)
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("d,f", [(512, 2048), (1024, 4096)])
+def test_plain_matches_pallas_kernel_at_tower_widths(d, f, dtype):
+    """The text tower's width (D = 512, F = 2048: the wgmma kernel's 256-
+    column fc2 tiles) and ViT-L/14's (D = 1024, F = 4096: two blocks split
+    the output columns)
+    with a few rows, weights scaled by D^-½ and F^-½ so that |y| < 8:
+    fp32 at 2e-4 (the fp32 sums' order over D + F terms), bf16 at one bf16
+    ulp below 8 (3.2e-2)."""
+    rng = np.random.default_rng(d)
+    arrays = ((rng.standard_normal((40, d))).astype(np.float32),
+              (rng.standard_normal((d, f)) * d ** -0.5).astype(np.float32),
+              (rng.standard_normal((f,)) * 0.1).astype(np.float32),
+              (rng.standard_normal((f, d)) * f ** -0.5).astype(np.float32),
+              (rng.standard_normal((d,)) * 0.1).astype(np.float32))
+    want = np.asarray(_jax(arrays, "quick_gelu", dtype), np.float32)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in arrays)
+    got = mlp.fused_mlp_reference(x.to(tdt), w1.to(tdt), b1, w2.to(tdt), b2)
+    assert got.dtype == tdt and np.abs(want).max() < 8
+    tol = 2e-4 if dtype == jnp.float32 else 3.2e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
 def test_plain_rounds_h_like_the_fused_kernel(rng):
     """The plain version rounds h once, after the fp32 activation — not
     after fc1 as the unfused chain does — so it differs from the unfused
