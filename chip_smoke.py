@@ -9,8 +9,9 @@
    and the count of tensor-core instructions in each library's SASS
    (``cuobjdump -sass``: ``HMMA`` for ``mma.sync`` and wmma, ``HGMMA`` for
    ``wgmma``): the libraries redesigned for tensor cores (bsd, bsd probe,
-   split-heads, flash, fused MLP) must hold some and spill nothing, and the
-   fused MLP must hold ``HGMMA`` that ptxas did not serialize.
+   split-heads, flash, fused MLP) must hold some and spill nothing, the
+   fused MLP must hold ``HGMMA`` that ptxas did not serialize, and the MCM
+   score's library must not spill either.
 2. Kernel phase: each kernel against its plain PyTorch version on the card
    at its paths' shapes, with the tolerance stated; CUDA-event times of
    the kernel, the plain version and one PyTorch library call for the
@@ -21,13 +22,20 @@
    multi-block branch), bf16 S = 17 and S = 256 with ``kv_len`` = 197 (the
    shootout's masked case);
    each bsd probe mode is held against its plain version; the packed bsd
-   launch (``bsd_fused``) must be bit-identical to the split one.
-3. Slice phase: the eval CLI (``mcm_tpu_torch.cli.eval_ood``) at the full
-   width and depth of ViT-B/16, random weights from seed 0, on a synthetic
-   JPEG tree made from a seed: asserts that every kernel of the path was
-   launched (bsd: 12 per image batch; mcm: 1 per image batch), that every
-   score is finite and that the CSV was written; then scores one batch
-   through the math paths and bounds the difference.
+   launch (``bsd_fused``) must be bit-identical to the split one; the MCM
+   score also runs C = 16000, B = 1 and 7, D = 768 and a zero (NaN) row.
+3. Slice phase: writes the port's synthetic ViT-B/16 HF state dict (seed
+   0) as a snapshot, ``<ckpt>/clip-vit-base-patch16/pytorch_model.bin``,
+   then runs the eval CLI (``mcm_tpu_torch.cli.eval_ood``) at the full
+   width and depth of ViT-B/16 with ``--ckpt_dir <ckpt>`` on a synthetic
+   JPEG tree made from a seed: the CLI converts the snapshot and caches
+   ``ViT-B-16.npz`` (``--allow_random_weights`` only lets the hash
+   tokenizer stand in for the missing vocab; a random-weights warning
+   fails the phase).  Prints the seconds of the snapshot and of the
+   conversion; asserts that every kernel of the path was launched (bsd: 12
+   per image batch; mcm: 1 per image batch), that every score is finite
+   and that the CSV was written; then scores one batch through the math
+   paths and bounds the difference.
 4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
    turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
@@ -132,6 +140,9 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 #: the libraries whose bf16 kernels run on tensor cores
 TENSOR_CORE_LIBS = ("bsd_attention", "bsd_probe", "split_attention",
                     "flash_attention", "fused_mlp")
+#: the libraries that must not spill: those and the MCM score's register
+#: tiles
+NO_SPILL_LIBS = TENSOR_CORE_LIBS + ("mcm_score",)
 
 
 def build() -> tuple:
@@ -147,7 +158,7 @@ def build() -> tuple:
         for line in log.splitlines():
             if re.search(r"Compiling entry|registers|spill|serialized", line):
                 print(f"[{name}] {line.strip()}")
-        if name in TENSOR_CORE_LIBS:
+        if name in NO_SPILL_LIBS:
             spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
             check(all(n == "0" for n in spills), f"{name}: ptxas spills")
             # ptxas waits after every wgmma when it cannot track the
@@ -215,28 +226,52 @@ def _library_scores(img, txt, score, T):
     return -p.var(dim=-1, unbiased=False)
 
 
-def mcm_case(b, c, d, score, T, main_path: bool) -> dict:
+def mcm_case(b, c, d, score, T, main_path: bool, nan_row=None) -> dict:
+    """The mcm kernel against its plain version; ``nan_row``: that image
+    row is zero, so both must score it NaN and the other rows finite."""
     from mcm_tpu_torch.ops.mcm_score import mcm_score, mcm_score_reference
     gen = torch.Generator(device="cuda").manual_seed(c + d)
     img = torch.randn((b, d), generator=gen, device="cuda")
     txt = torch.randn((c, d), generator=gen, device="cuda")
     txt = txt / txt.norm(dim=-1, keepdim=True)
+    if nan_row is not None:
+        img[nan_row] = 0.0
     got = mcm_score(img, txt, score, T)
     want = mcm_score_reference(img, txt, score, T)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    tol = MCM_TOL_REL * float(want.abs().max())
-    check(bool(torch.isfinite(got).all()) and err <= tol,
+    keep = torch.ones(b, dtype=torch.bool, device="cuda")
+    if nan_row is not None:
+        check(bool(torch.isnan(got[nan_row])) and bool(torch.isnan(want[nan_row])),
+              f"mcm_score {(b, c, d, score, T)}: row {nan_row} of zeros is not "
+              f"NaN: kernel {float(got[nan_row])}, plain {float(want[nan_row])}")
+        keep[nan_row] = False
+    err = float((got[keep] - want[keep]).abs().max())
+    tol = MCM_TOL_REL * float(want[keep].abs().max())
+    check(bool(torch.isfinite(got[keep]).all()) and err <= tol,
           f"mcm_score {(b, c, d, score, T)}: max |kernel - plain| {err} > {tol}")
     nbytes = (b * d + c * d + b) * 4
     flops = 2.0 * b * c * d
     bms, by = bound(nbytes, flops, torch.float32)
-    return {"kernel": "mcm_score", "case": [b, c, d, score, T],
-            "main_path_shape": main_path, "max_abs_err": err, "tol": tol,
-            "kernel_ms": cuda_ms(lambda: mcm_score(img, txt, score, T)),
-            "plain_ms": cuda_ms(lambda: mcm_score_reference(img, txt, score, T)),
-            "library_ms": cuda_ms(lambda: _library_scores(img, txt, score, T)),
-            "bound_ms": bms, "bound_by": by, "launches_per_batch": 1}
+    row = {"kernel": "mcm_score", "case": [b, c, d, score, T],
+           "nan_row": nan_row, "main_path_shape": main_path,
+           "max_abs_err": err, "tol": tol,
+           "kernel_ms": cuda_ms(lambda: mcm_score(img, txt, score, T)),
+           "plain_ms": cuda_ms(lambda: mcm_score_reference(img, txt, score, T)),
+           "library_ms": cuda_ms(lambda: _library_scores(img, txt, score, T)),
+           "bound_ms": bms, "bound_by": by, "launches_per_batch": 1}
+    if main_path:
+        # the calls are short enough that the host may pace them: the
+        # device's own time per call, from the profiler, beside the above,
+        # and how it splits between the kernel's launches
+        prof = profile_batches(lambda: mcm_score(img, txt, score, T), n=20)
+        row["kernel_device_ms"] = prof["device_ms_per_batch"]
+        row["kernel_device_ms_by_launch"] = {
+            name.split("::")[-1].split("(")[0]: ms
+            for name, ms in prof["top_device_ms_per_batch"]}
+        row["library_device_ms"] = profile_batches(
+            lambda: _library_scores(img, txt, score, T),
+            n=20)["device_ms_per_batch"]
+    return row
 
 
 def _act(h, act):
@@ -417,6 +452,13 @@ def kernel_phase() -> dict:
                 emit(row)
                 if mp:
                     main["mcm_score"] = row
+    # past the old shared-memory gate (C = 16000), partial row tiles, L/14's
+    # width, and a zero row in every score
+    for args in ((BATCH, 16000, 512, "MCM", 1.0), (1, 1000, 512, "MCM", 1.0),
+                 (7, 1000, 512, "entropy", 1.0), (BATCH, 1000, 768, "MCM", 1.0)):
+        emit(mcm_case(*args, False))
+    for score in ("MCM", "energy", "max-logit", "entropy", "var"):
+        emit(mcm_case(BATCH, 1000, 512, score, 1.0, False, nan_row=3))
     text_rows = 1000 * 77            # the ImageNet prompts, 77 tokens each
     mlp_cases = [(BATCH * 197, 768, 3072, "quick_gelu", torch.bfloat16, True),
                  (BATCH * 197, 768, 3072, "gelu", torch.bfloat16, False),
@@ -484,15 +526,39 @@ def _write_tree(root: str, seed: int = 0) -> int:
     return batches
 
 
+def write_snapshot(ckpt: str) -> dict:
+    """The port's synthetic ViT-B/16 state dict (seed 0) as an HF snapshot,
+    ``<ckpt>/clip-vit-base-patch16/pytorch_model.bin``, for the CLI to
+    convert; returns its size and the seconds it took."""
+    from mcm_tpu_torch.config import CLIP_CONFIGS, HF_CKPT_MAPPING
+    from mcm_tpu_torch.models.hf_synth import synth_hf_clip_state_dict
+    t = time.perf_counter()
+    sd = synth_hf_clip_state_dict(CLIP_CONFIGS["ViT-B/16"](), seed=0)
+    snap = os.path.join(ckpt, HF_CKPT_MAPPING["ViT-B/16"].split("/")[-1])
+    os.makedirs(snap)
+    path = os.path.join(snap, "pytorch_model.bin")
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
+               path)
+    return {"snapshot": path, "snapshot_bytes": os.path.getsize(path),
+            "snapshot_params": sum(int(np.asarray(v).size) for v in sd.values()),
+            "snapshot_write_s": time.perf_counter() - t}
+
+
 def slice_phase(work: str) -> dict:
+    import warnings
+
     from mcm_tpu_torch.cli.eval_ood import main as cli_main
     from mcm_tpu_torch.ops.attention import bsd_attention
     from mcm_tpu_torch.ops.mcm_score import mcm_score
 
     data = os.path.join(work, "datasets")
-    ckpt = os.path.join(work, "no_ckpt")
-    os.makedirs(ckpt)
+    ckpt = os.path.join(work, "ckpt")
+    snapshot = write_snapshot(ckpt)
+    print(f"wrote the synthetic ViT-B/16 snapshot in "
+          f"{snapshot['snapshot_write_s']:.2f}s", flush=True)
     n_batches = _write_tree(data)
+    # --allow_random_weights only for the hash tokenizer (no vocab here):
+    # the weights come from the snapshot, converted by the CLI
     argv = ["--in_dataset", "ImageNet", "--root-dir", data,
             "--CLIP_ckpt", "ViT-B/16", "--score", "MCM", "--precision", "fast",
             "-b", str(BATCH), "--allow_random_weights", "--ckpt_dir", ckpt,
@@ -505,7 +571,9 @@ def slice_phase(work: str) -> dict:
         bsd_attention.launches = 0
         mcm_score.launches = 0
         t = time.perf_counter()
-        results = cli_main(argv)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            results = cli_main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = {"bsd_attention": bsd_attention.launches,
@@ -513,6 +581,11 @@ def slice_phase(work: str) -> dict:
     finally:
         os.chdir(cwd)
     peak = torch.cuda.max_memory_allocated()
+    random_weights = [str(w.message) for w in caught
+                      if "RANDOM WEIGHTS" in str(w.message)]
+    check(not random_weights, f"the CLI ran random weights: {random_weights}")
+    npz = os.path.join(ckpt, "ViT-B-16.npz")
+    check(os.path.exists(npz), f"the CLI did not cache its conversion at {npz}")
 
     check(launches["bsd_attention"] == 12 * n_batches,
           f"bsd_attention launched {launches['bsd_attention']} times, want "
@@ -532,10 +605,20 @@ def slice_phase(work: str) -> dict:
         n_scores += n
     with open(os.path.join(log_dir, "ood_eval_info.log")) as f:
         log = f.read()
+    conv = re.search(r"weights resolved in ([0-9.]+)s from (.*)$", log, re.M)
+    check(conv is not None and "pytorch_model.bin" not in conv.group(2)
+          and "ViT-B-16.npz" in conv.group(2),
+          f"the log does not show the converted weights: "
+          f"{conv.group(0) if conv else None}")
+    print(f"the CLI converted the snapshot in {float(conv.group(1)):.2f}s",
+          flush=True)
     m = re.search(r"throughput: ([0-9.]+) img/s", log)
     stages = re.findall(r"^ +(\w+): +([0-9.]+)s total .*$", log, re.M)
     out = {"phase": "slice", "model": "ViT-B/16 (12 layers, width 768; text "
-           "12 layers, width 512)", "precision": "fast", "batch": BATCH,
+           "12 layers, width 512)", "weights": "converted from a synthetic HF "
+           "snapshot (seed 0)", **snapshot,
+           "conversion_s": float(conv.group(1)),
+           "precision": "fast", "batch": BATCH,
            "image_batches": n_batches, "images": n_scores,
            "launches": launches, "results": results,
            "loop_images_per_s": float(m.group(1)) if m else None,
@@ -830,6 +913,9 @@ def main() -> int:
                  "sass_hgmma": hgmma[os.path.basename(source)[:-3]],
                  "status": "built; within tolerance of its plain "
                            "version; launched on its path"}
+        entry.update({k: row[k] for k in (
+            "kernel_device_ms", "kernel_device_ms_by_launch",
+            "library_device_ms") if k in row})
         if "modes" in row:
             entry["modes"] = [{k: m[k] for k in (
                 "mode", "max_abs_err", "tol", "kernel_ms", "plain_ms",

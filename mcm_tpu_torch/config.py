@@ -121,6 +121,14 @@ CLIP_CONFIGS = {
 #: Feature dim per checkpoint (replaces the reference's manual --feat_dim).
 CLIP_FEAT_DIMS = {"ViT-B/32": 512, "ViT-B/16": 512, "ViT-L/14": 768}
 
+#: HF hub ids of the checkpoints, for finding a snapshot to convert
+#: (reference ``train_eval_util.py:19-21``).
+HF_CKPT_MAPPING = {
+    "ViT-B/16": "openai/clip-vit-base-patch16",
+    "ViT-B/32": "openai/clip-vit-base-patch32",
+    "ViT-L/14": "openai/clip-vit-large-patch14",
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class Precision:

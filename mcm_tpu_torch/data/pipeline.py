@@ -3,7 +3,7 @@
 Replaces the reference's ``torch.utils.data.DataLoader(num_workers=4,
 pin_memory=True)`` (``utils/train_eval_util.py:49,96``).  Decode runs on
 a thread pool through PIL (the C++ libjpeg decoder of the JAX package is
-not ported yet: ``ROADMAP.md`` Queue 1, item 6); batches are prepared
+not ported yet: ``ROADMAP.md`` Queue 1, item 2); batches are prepared
 ahead of the consumer on a bounded queue so host decode overlaps device
 compute.
 

@@ -1,0 +1,144 @@
+"""Deterministic synthesized HF ``CLIPModel`` state dicts, from numpy alone.
+
+The same keys, shapes and values as the JAX package's
+``mcm_tpu/models/hf_synth.py`` (its numpy-only helpers, copied): every
+value is a pure function of ``(key, seed)``.  They stand in for real
+``openai/clip-vit-*`` weights where none can be fetched: the converter is
+held against the JAX package's on them, and ``chip_smoke.py`` writes one
+as an HF snapshot for the CLI to convert on a card host that has no JAX.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Dict, Tuple
+
+import numpy as np
+
+from mcm_tpu_torch.config import CLIPConfig
+
+
+def hf_clip_key_shapes(cfg: CLIPConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every key of ``CLIPModel(cfg).state_dict()`` with its shape."""
+    v, t = cfg.vision, cfg.text
+    shapes: Dict[str, Tuple[int, ...]] = {
+        "logit_scale": (),
+        "text_model.embeddings.token_embedding.weight":
+            (t.vocab_size, t.width),
+        "text_model.embeddings.position_embedding.weight":
+            (t.context_length, t.width),
+        "text_model.final_layer_norm.weight": (t.width,),
+        "text_model.final_layer_norm.bias": (t.width,),
+        "text_projection.weight": (cfg.embed_dim, t.width),
+        "vision_model.embeddings.class_embedding": (v.width,),
+        "vision_model.embeddings.patch_embedding.weight":
+            (v.width, 3, v.patch_size, v.patch_size),
+        "vision_model.embeddings.position_embedding.weight":
+            ((v.image_size // v.patch_size) ** 2 + 1, v.width),
+        "vision_model.pre_layrnorm.weight": (v.width,),   # sic: HF's name
+        "vision_model.pre_layrnorm.bias": (v.width,),
+        "vision_model.post_layernorm.weight": (v.width,),
+        "vision_model.post_layernorm.bias": (v.width,),
+        "visual_projection.weight": (cfg.embed_dim, v.width),
+    }
+    for tower, tc in (("vision_model", v), ("text_model", t)):
+        d, m = tc.width, tc.width * tc.mlp_ratio
+        for i in range(tc.layers):
+            pre = f"{tower}.encoder.layers.{i}"
+            for ln in ("layer_norm1", "layer_norm2"):
+                shapes[f"{pre}.{ln}.weight"] = (d,)
+                shapes[f"{pre}.{ln}.bias"] = (d,)
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                shapes[f"{pre}.self_attn.{proj}.weight"] = (d, d)
+                shapes[f"{pre}.self_attn.{proj}.bias"] = (d,)
+            shapes[f"{pre}.mlp.fc1.weight"] = (m, d)
+            shapes[f"{pre}.mlp.fc1.bias"] = (m,)
+            shapes[f"{pre}.mlp.fc2.weight"] = (d, m)
+            shapes[f"{pre}.mlp.fc2.bias"] = (d,)
+    return shapes
+
+
+def _value_for(key: str, shape: Tuple[int, ...], seed: int) -> np.ndarray:
+    # SFC64 with native float32 normals: fast enough for the full-size
+    # dicts, and still a pure function of (key, seed)
+    rng = np.random.Generator(
+        np.random.SFC64([seed, zlib.crc32(key.encode())]))
+
+    def normal(scale: float) -> np.ndarray:
+        return scale * rng.standard_normal(shape, dtype=np.float32)
+
+    if key == "logit_scale":
+        return np.float32(np.log(1.0 / 0.07))
+    leaf = key.rsplit(".", 1)[-1]
+    norm_like = ("layer_norm" in key or "layernorm" in key
+                 or "layrnorm" in key)
+    if norm_like:
+        if leaf == "weight":
+            return (1.0 + normal(0.1)).astype(np.float32)
+        return normal(0.02)
+    if leaf == "bias":
+        return normal(0.02)
+    # small enough that activations stay O(1) through the layers
+    return normal(0.03)
+
+
+def synth_hf_clip_state_dict(cfg: CLIPConfig,
+                             seed: int = 0) -> Dict[str, np.ndarray]:
+    """A full, shape-exact HF CLIP state dict with deterministic values."""
+    return {k: _value_for(k, s, seed)
+            for k, s in hf_clip_key_shapes(cfg).items()}
+
+
+def zeros_hf_clip_state_dict(cfg: CLIPConfig) -> Dict[str, np.ndarray]:
+    """Shape-exact all-zeros dict, for key-coverage and shape checks."""
+    return {k: np.zeros(s, np.float32)
+            for k, s in hf_clip_key_shapes(cfg).items()}
+
+
+def hf_to_openai_state_dict(hf_sd: Dict[str, np.ndarray],
+                            cfg: CLIPConfig) -> Dict[str, np.ndarray]:
+    """The same values in the original OpenAI (github.com/openai/CLIP) key
+    layout: q/k/v packed into ``attn.in_proj_*`` (rows q, k, v),
+    ``fc1``/``fc2`` as ``c_fc``/``c_proj``, the projections transposed back
+    to the ``x @ proj`` orientation."""
+    out: Dict[str, np.ndarray] = {
+        "logit_scale": hf_sd["logit_scale"],
+        "visual.conv1.weight":
+            hf_sd["vision_model.embeddings.patch_embedding.weight"],
+        "visual.class_embedding":
+            hf_sd["vision_model.embeddings.class_embedding"],
+        "visual.positional_embedding":
+            hf_sd["vision_model.embeddings.position_embedding.weight"],
+        "visual.ln_pre.weight": hf_sd["vision_model.pre_layrnorm.weight"],
+        "visual.ln_pre.bias": hf_sd["vision_model.pre_layrnorm.bias"],
+        "visual.ln_post.weight": hf_sd["vision_model.post_layernorm.weight"],
+        "visual.ln_post.bias": hf_sd["vision_model.post_layernorm.bias"],
+        "visual.proj": hf_sd["visual_projection.weight"].T,
+        "token_embedding.weight":
+            hf_sd["text_model.embeddings.token_embedding.weight"],
+        "positional_embedding":
+            hf_sd["text_model.embeddings.position_embedding.weight"],
+        "ln_final.weight": hf_sd["text_model.final_layer_norm.weight"],
+        "ln_final.bias": hf_sd["text_model.final_layer_norm.bias"],
+        "text_projection": hf_sd["text_projection.weight"].T,
+    }
+    towers = (("vision_model", "visual.transformer", cfg.vision.layers),
+              ("text_model", "transformer", cfg.text.layers))
+    for hf_tower, oai_tower, n in towers:
+        for i in range(n):
+            hp = f"{hf_tower}.encoder.layers.{i}"
+            op = f"{oai_tower}.resblocks.{i}"
+            out[f"{op}.attn.in_proj_weight"] = np.concatenate(
+                [hf_sd[f"{hp}.self_attn.{w}.weight"]
+                 for w in ("q_proj", "k_proj", "v_proj")], axis=0)
+            out[f"{op}.attn.in_proj_bias"] = np.concatenate(
+                [hf_sd[f"{hp}.self_attn.{w}.bias"]
+                 for w in ("q_proj", "k_proj", "v_proj")], axis=0)
+            for hf_name, oai_name in (
+                    ("self_attn.out_proj", "attn.out_proj"),
+                    ("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"),
+                    ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj")):
+                out[f"{op}.{oai_name}.weight"] = \
+                    hf_sd[f"{hp}.{hf_name}.weight"]
+                out[f"{op}.{oai_name}.bias"] = hf_sd[f"{hp}.{hf_name}.bias"]
+    return out

@@ -139,10 +139,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mcm_bsd_attention_error_string.argtypes = [i]
         lib.mcm_bsd_attention_error_string.restype = ctypes.c_char_p
     elif name == "mcm_score":
-        lib.mcm_score.argtypes = [p, p, p, i, i, i, f, i, p]
+        lib.mcm_score.argtypes = [p, p, p, p, i, i, i, f, i, p]
         lib.mcm_score.restype = i
-        lib.mcm_score_smem_bytes.argtypes = [i, i]
-        lib.mcm_score_smem_bytes.restype = ctypes.c_size_t
         lib.mcm_score_error_string.argtypes = [i]
         lib.mcm_score_error_string.restype = ctypes.c_char_p
     elif name == "fused_mlp":

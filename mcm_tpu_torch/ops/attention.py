@@ -344,7 +344,7 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         else:
             raise NotImplementedError(
                 "attn_impl='pallas_bsd_vjp' (trainable bsd attention) is not "
-                "ported yet: ROADMAP.md Queue 1, item 14 (training)")
+                "ported yet: ROADMAP.md Queue 1, item 8 (training)")
     # d % heads guards a heads count that doesn't divide D, which the
     # split-heads path would reject but the kernel would silently compute
     # with fake slice-derived "heads".

@@ -6,7 +6,7 @@ which is hoisted out and cached): uint8 → float normalize, the ViT
 forward, and the fused L2-normalize → class matmul → score reduction.  The
 only host↔device traffic per batch is uint8 pixels in (through pinned
 memory, asynchronously) and one fp32 score per image out.  One device:
-multi-card data parallelism is ``ROADMAP.md`` Queue 1, item 15.
+multi-card data parallelism is ``ROADMAP.md`` Queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class EvalStep:
                  precision: Precision = Precision.fast(), device="cuda"):
         if score == "odin":
             raise NotImplementedError(
-                "score='odin' is not ported yet: ROADMAP.md Queue 1, item 11")
+                "score='odin' is not ported yet: ROADMAP.md Queue 1, item 4")
         if score not in CLIP_SCORES:
             raise ValueError(f"unknown score {score!r}")
         self.cfg = cfg
@@ -90,7 +90,7 @@ class EvalStep:
     def maha(self, *args, **kwargs):
         raise NotImplementedError(
             "Mahalanobis scoring is not ported yet: ROADMAP.md Queue 1, "
-            "item 10")
+            "item 3")
 
     # -- text side (run once per dataset) --------------------------------------
 

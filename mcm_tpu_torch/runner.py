@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 import warnings
 from typing import Dict, List, Optional, Sequence
 
@@ -104,25 +105,25 @@ def check_ported(cfg: RunConfig) -> None:
     """Raise for every option of the JAX runner this slice does not port."""
     todo = []
     if cfg.score == "maha":
-        todo.append("--score maha: ROADMAP.md Queue 1, item 10")
+        todo.append("--score maha: ROADMAP.md Queue 1, item 3")
     if cfg.score == "odin":
-        todo.append("--score odin: ROADMAP.md Queue 1, item 11")
+        todo.append("--score odin: ROADMAP.md Queue 1, item 4")
     if cfg.model == "vit-Linear":
-        todo.append("--model vit-Linear: ROADMAP.md Queue 1, item 12")
+        todo.append("--model vit-Linear: ROADMAP.md Queue 1, item 6")
     if cfg.model == "CLIP-Linear":
-        todo.append("--model CLIP-Linear: ROADMAP.md Queue 1, item 14")
+        todo.append("--model CLIP-Linear: ROADMAP.md Queue 1, item 8")
     if cfg.resume:
-        todo.append("--resume: ROADMAP.md Queue 1, item 8")
+        todo.append("--resume: ROADMAP.md Queue 1, item 5")
     if cfg.eval_accuracy:
-        todo.append("--eval_accuracy: ROADMAP.md Queue 1, item 8")
+        todo.append("--eval_accuracy: ROADMAP.md Queue 1, item 5")
     if cfg.fast_decode:
         todo.append("--fast_decode (native decoder): ROADMAP.md Queue 1, "
-                    "item 6")
+                    "item 2")
     if cfg.model_parallel > 1 or (cfg.n_devices or 1) > 1:
         todo.append("--model_parallel / --n_devices > 1: ROADMAP.md Queue 1, "
-                    "item 15")
+                    "item 9")
     if cfg.trace_dir:
-        todo.append("--trace_dir: ROADMAP.md Queue 1, item 7")
+        todo.append("--trace_dir: ROADMAP.md Queue 1, item 5")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
     if cfg.model != "CLIP":
@@ -177,18 +178,19 @@ def build_model_and_step(cfg: RunConfig, log=None):
             f"feature dim {derived_dim}; the dim is derived from the "
             f"checkpoint and the flag value is ignored")
 
+    t0 = time.perf_counter()
     params = resolve_clip_params(cfg.clip_ckpt, cfg.ckpt_dir)
     if log is not None and params is not None:
         # record WHICH weight file fed this run: the CSVs key on flags only
-        log.debug(f"weights resolved from "
+        log.debug(f"weights resolved in {time.perf_counter() - t0:.2f}s from "
                   f"{file_identity(resolve_clip_weight_source(cfg.clip_ckpt, cfg.ckpt_dir))}")
     if params is None:
         if not cfg.allow_random_weights:
             raise FileNotFoundError(
                 f"no pretrained weights for {cfg.clip_ckpt}; set "
                 f"MCM_TPU_CKPT_DIR (or --ckpt_dir) to a directory holding "
-                f"the converted .npz, or pass --allow_random_weights for "
-                f"smoke runs")
+                f"the converted .npz, the OpenAI .pt or the HF snapshot "
+                f"directory, or pass --allow_random_weights for smoke runs")
         warnings.warn("RANDOM WEIGHTS in use — scores are meaningless; "
                       "this mode is for smoke/throughput tests only")
         params = init_clip(0, clip_cfg)

@@ -18,6 +18,7 @@ CUDA kernel lives in :mod:`mcm_tpu_torch.ops.mcm_score`.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -33,11 +34,39 @@ def l2_normalize(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     return (x32 / norm).to(x.dtype)
 
 
+@contextlib.contextmanager
+def ieee_fp32_matmul():
+    """cuBLAS fp32 products in IEEE fp32 inside the block, whatever the
+    global TF32 setting (JAX's ``precision="highest"``), and that setting
+    exactly as it was found on the way out, after an exception too.  Both
+    of torch's switches are set: the legacy ``allow_tf32`` and, where torch
+    has it, the newer ``fp32_precision``.  A legacy setter also moves the
+    newer attributes, so those are restored last."""
+    cuda_mm = torch.backends.cuda.matmul
+    newer = [b for b in (cuda_mm, getattr(torch.backends.mkldnn, "matmul",
+                                          None))
+             if hasattr(b, "fp32_precision")]
+    saved_newer = [b.fp32_precision for b in newer]
+    try:
+        saved_legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:   # the two switches disagree: keep the newer ones
+        saved_legacy = None
+    cuda_mm.allow_tf32 = False
+    if hasattr(cuda_mm, "fp32_precision"):
+        cuda_mm.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        if saved_legacy is not None:
+            torch.set_float32_matmul_precision(saved_legacy)
+        for b, p in zip(newer, saved_newer):
+            b.fp32_precision = p
+
+
 def similarity_logits(image_feats: torch.Tensor, text_feats: torch.Tensor,
                       normalize_image: bool = True,
                       normalize_text: bool = False) -> torch.Tensor:
-    """Cosine-similarity logits [B, C] in fp32 (a true fp32 product as long
-    as ``torch.backends.cuda.matmul.allow_tf32`` keeps its default, False).
+    """Cosine-similarity logits [B, C] from an IEEE fp32 product.
 
     ``text_feats`` are expected pre-normalized (cached per dataset);
     set ``normalize_text=True`` when passing raw encoder output.
@@ -46,7 +75,8 @@ def similarity_logits(image_feats: torch.Tensor, text_feats: torch.Tensor,
         image_feats = l2_normalize(image_feats)
     if normalize_text:
         text_feats = l2_normalize(text_feats)
-    return image_feats.float() @ text_feats.float().T
+    with ieee_fp32_matmul():
+        return torch.matmul(image_feats.float(), text_feats.float().T)
 
 
 def _scores_from_logits(logits: torch.Tensor,

@@ -75,5 +75,5 @@ def maybe_profile(trace_dir: Optional[str]):
     if trace_dir:
         raise NotImplementedError(
             "--trace_dir is not ported yet (torch.profiler tracing): "
-            "ROADMAP.md Queue 1, item 7")
+            "ROADMAP.md Queue 1, item 5")
     yield

@@ -11,6 +11,7 @@ metrics and CSV are equal.  The JAX side decodes with PIL
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -31,13 +32,19 @@ def _run(cmd, cwd, **env_extra):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("torch_cli")
-    root = tmp / "datasets"
+def tree(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_cli_tree") / "datasets"
     make_pet_tree(str(root), per_breed=6)
     make_imagefolder_tree(str(root / "ImageNet_OOD_dataset" / "dtd" /
                               "images"), ["banded", "blotchy"], 5,
                           color_bias=40)
+    return root
+
+
+def _run_both(tmp, root, ckpt_dirs=None):
+    """Both CLIs on the tree; each in its own directory and, when given,
+    with its own ``--ckpt_dir``.  Returns each run's results directory and
+    its stderr."""
     out = {}
     for name, cmd, extra in [
             ("jax", [sys.executable, os.path.join(REPO, "eval_ood_detection.py")],
@@ -46,11 +53,51 @@ def runs(tmp_path_factory):
                        "--device", "cpu"], {})]:
         cwd = tmp / name
         cwd.mkdir()
-        proc = _run(cmd + ARGS + ["--root-dir", str(root), "--name", name],
-                    str(cwd), **extra)
+        ckpt = ["--ckpt_dir", str(ckpt_dirs[name])] if ckpt_dirs else []
+        proc = _run(cmd + ARGS + ckpt + ["--root-dir", str(root), "--name",
+                                         name], str(cwd), **extra)
         assert proc.returncode == 0, proc.stderr[-3000:]
-        out[name] = cwd / "results" / "pet37" / "MCM" / f"CLIP_ViT-B/16_T_1_ID_{name}"
+        out[name] = (cwd / "results" / "pet37" / "MCM"
+                     / f"CLIP_ViT-B/16_T_1_ID_{name}", proc.stderr)
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, tree):
+    tmp = tmp_path_factory.mktemp("torch_cli")
+    return {k: v[0] for k, v in _run_both(tmp, tree).items()}
+
+
+@pytest.fixture(scope="module")
+def snapshot_runs(tmp_path_factory, tree):
+    """Both CLIs take their weights from one synthetic HF snapshot of the
+    tiny ViT-B/16 double (``model.safetensors``), each converting its own
+    copy under its ``--ckpt_dir``."""
+    from safetensors.numpy import save_file
+
+    from mcm_tpu.config import CLIP_CONFIGS
+    from mcm_tpu.models.hf_synth import synth_hf_clip_state_dict
+    tmp = tmp_path_factory.mktemp("torch_cli_snapshot")
+    saved = os.environ.get("MCM_TPU_TEST_TINY_B16")
+    os.environ["MCM_TPU_TEST_TINY_B16"] = "1"
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cfg = CLIP_CONFIGS["ViT-B/16"]()
+    finally:
+        if saved is None:
+            del os.environ["MCM_TPU_TEST_TINY_B16"]
+        else:
+            os.environ["MCM_TPU_TEST_TINY_B16"] = saved
+    sd = synth_hf_clip_state_dict(cfg, seed=2)
+    ckpts = {}
+    for name in ("jax", "torch"):
+        snap = tmp / f"ckpt_{name}" / "clip-vit-base-patch16"
+        snap.mkdir(parents=True)
+        save_file({k: np.asarray(v) for k, v in sd.items()},
+                  str(snap / "model.safetensors"))
+        ckpts[name] = snap.parent
+    return _run_both(tmp, tree, ckpts), ckpts
 
 
 @pytest.mark.parametrize("dataset", ["ID_pet37", "dtd"])
@@ -68,6 +115,28 @@ def test_metrics_csv_matches_jax_cli(runs):
     assert got == want
     assert got.splitlines()[0] == ",FPR95,AUROC,AUPR"
     assert (runs["torch"] / "ood_eval_info.log").exists()
+
+
+def test_cli_converts_the_same_snapshot(snapshot_runs):
+    """Weights from one HF snapshot under ``--ckpt_dir``: each CLI converts
+    it and caches the same ``ViT-B-16.npz``, no random weights are used, and
+    the scores and the CSV agree as on random weights."""
+    runs, ckpts = snapshot_runs
+    for name in ("jax", "torch"):
+        assert "RANDOM WEIGHTS" not in runs[name][1]
+        assert (ckpts[name] / "ViT-B-16.npz").exists()
+    with np.load(ckpts["jax"] / "ViT-B-16.npz") as want, \
+            np.load(ckpts["torch"] / "ViT-B-16.npz") as got:
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for dataset in ("ID_pet37", "dtd"):
+        want = np.load(runs["jax"][0] / f"{dataset}_scores.npy")
+        got = np.load(runs["torch"][0] / f"{dataset}_scores.npy")
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2e-5 * np.abs(want).max())
+    assert (runs["torch"][0] / "torch.csv").read_text() == \
+        (runs["jax"][0] / "jax.csv").read_text()
 
 
 def test_cli_without_card_raises_unless_cpu(tmp_path, monkeypatch):

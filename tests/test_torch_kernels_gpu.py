@@ -158,19 +158,63 @@ def test_mcm_kernel_propagates_nan_rows(cuda, score):
     assert torch.isfinite(torch.cat([got[:3], got[4:]])).all()
 
 
-def test_mcm_gate_matches_kernel_allocation(cuda):
-    from mcm_tpu_torch.ops import _build
-    lib = _build.load("mcm_score")
-    for c, d in [(1000, 512), (7, 64), (13000, 768)]:
-        assert lib.mcm_score_smem_bytes(c, d) == mcm_score.kernel_smem_bytes(c, d)
+@pytest.mark.parametrize("score", ["MCM", "energy", "max-logit", "entropy",
+                                   "var"])
+@pytest.mark.parametrize("b,c,d,T", [
+    (128, 16000, 512, 1.0),    # past the old shared-memory gate
+    (1, 1000, 512, 1.0), (7, 1000, 512, 1.0),    # partial row tiles
+    (64, 1000, 768, 1.0),      # L/14's feature width
+    (9, 130, 509, 1.0), (33, 33, 33, 100.0), (5, 20000, 3, 1.0),  # D % 4 != 0
+    (3, 1, 1, 1.0)])
+def test_mcm_kernel_takes_any_shape(cuda, score, b, c, d, T):
+    img, txt = _feats(b, c, d, cuda)
+    got = mcm_score.mcm_score(img, txt, score, T)
+    torch.cuda.synchronize()
+    want = mcm_score.mcm_score_reference(img, txt, score, T)
+    torch.testing.assert_close(got, want, rtol=1e-4 if score == "var" else 1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("score", ["MCM", "entropy", "var"])
+def test_mcm_kernel_takes_rows_off_16_byte_alignment(cuda, score):
+    """Views one float into their storage: the 4-byte staging path."""
+    img, txt = _feats(20, 300, 512, cuda)
+    img_off = torch.empty(img.numel() + 1, device=cuda)[1:].view_as(img)
+    txt_off = torch.empty(txt.numel() + 1, device=cuda)[1:].view_as(txt)
+    img_off.copy_(img)
+    txt_off.copy_(txt)
+    got = mcm_score.mcm_score(img_off, txt_off, score, 1.0)
+    want = mcm_score.mcm_score_reference(img, txt, score, 1.0)
+    torch.testing.assert_close(got, want, rtol=1e-4 if score == "var" else 1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def test_mcm_auto_takes_the_kernel_at_any_c(cuda):
     img, txt = _feats(4, 16000, 512, cuda)
-    assert not mcm_score.kernel_fits(16000, 512)
     before = mcm_score.mcm_score.launches
-    out = mcm_score.fused_mcm_scores(img, txt, "MCM", 1.0)    # auto → torch
-    assert mcm_score.mcm_score.launches == before
-    assert out.shape == (4,)
-    with pytest.raises(ValueError, match="shared memory"):
-        mcm_score.mcm_score(img, txt, "MCM", 1.0)
+    out = mcm_score.fused_mcm_scores(img, txt, "MCM", 1.0)      # auto
+    assert mcm_score.mcm_score.launches == before + 1
+    torch.testing.assert_close(
+        out, mcm_score.mcm_score_reference(img, txt, "MCM", 1.0),
+        rtol=1e-5, atol=1e-6 * float(out.abs().max()))
+
+
+def test_similarity_logits_ieee_with_tf32_on(cuda):
+    """TF32 turned on globally: the score path's product is still IEEE fp32
+    (within 1e-6 of a float64 product, relative), and TF32 is still on."""
+    from mcm_tpu_torch.scores import clip_scores
+    img, txt = _feats(64, 1000, 512, cuda)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = clip_scores.similarity_logits(img, txt)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    img64 = img.double()
+    want = (img64 / img64.norm(dim=-1, keepdim=True)) @ txt.double().T
+    err = float((got.double() - want).abs().max() / want.abs().max())
+    assert err < 1e-6, err
 
 
 # -- fused MLP -------------------------------------------------------------------

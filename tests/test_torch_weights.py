@@ -86,8 +86,10 @@ def test_resolve_clip_params_npz_only(golden_params, tmp_path):
     got = tconvert.resolve_clip_params("ViT-B/16", str(tmp_path))
     np.testing.assert_array_equal(got["vision"]["proj"],
                                   golden_params["vision"]["proj"])
+    # an OpenAI .pt beside it is converted now: an unreadable one raises
+    # instead of being skipped for random weights
     (tmp_path / "ViT-B-32.pt").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="neither"):
         tconvert.resolve_clip_params("ViT-B/32", str(tmp_path))
 
 
