@@ -35,7 +35,22 @@
    conversion; asserts that every kernel of the path was launched (bsd: 12
    per image batch; mcm: 1 per image batch), that every score is finite
    and that the CSV was written; then scores one batch through the math
-   paths and bounds the difference.
+   paths and bounds the difference.  Then, on the weights that run
+   converted, the rest of the CLI, each run with every launch count set
+   to 0 just before it and read just after:
+   ``--score maha`` on an ImageNet10 tree (800 train images, so N > D and
+   the covariance is full rank; 256 val) at ``-b 96``, where each OOD set
+   of 256 drops its 64-image tail (12 bsd launches per image batch of the
+   train, ID and full OOD passes; no MCM launch; templates written with
+   their weight fingerprint; no rank warning); ``--score odin`` at ``-b
+   128`` (one MCM launch per image batch, no other kernel: the gradient
+   pass runs the math paths), with ODIN at ε = 0 held against MCM on one
+   batch at the same precision and ODIN's device ms and peak memory per
+   batch; ``--score MCM --eval_accuracy --trace_dir`` (bsd for the ID
+   feature pass, MCM for the OOD batches only, the accuracy line, a
+   ``torch.profiler`` trace naming the bsd kernel), then the same command
+   with ``--resume``: no launch, no parameter upload (peak memory below
+   the model's size) and the same CSV.
 4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
    turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
@@ -48,8 +63,11 @@
    ``bsd_probe``, ``qkv_probe``, ``attn_shootout``) in-process at their
    own shapes (B = 512) with a shorter chain: no row may fail, and every
    kernel they reach must be launched.
-6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line, the
-   card line again and, last, ``{"ok": true, "device": {...}}``.
+6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line (its
+   ``launches``: bsd and MCM summed over the slice phase's CLI runs, the
+   knob kernels over their bench runs, the tools' kernels over their
+   tool's run), the card line again and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without a card.  Imports nothing of JAX
 or of the JAX package.
@@ -72,6 +90,9 @@ import torch
 BATCH = 128                      # -b of the slice run
 N_ID, N_OOD = 512, 256           # images per synthetic dataset
 OOD_SETS = ("iNaturalist", "dtd")
+# the maha run: ImageNet10, 80 train images a class (N = 800 > D = 512),
+# 256 val images; -b 96 makes each OOD set of 256 drop a 64-image tail
+MAHA_BATCH, MAHA_TRAIN_PER_CLASS, MAHA_N_VAL = 96, 80, 256
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bound
 PEAK_BYTES = 3.35e12
@@ -96,6 +117,9 @@ PROBE_LIBRARY = ("full", "bf16sm", "deferdiv")   # modes SDPA computes
 # score deltas below 1% of the largest score
 FEAT_COS_MIN = 0.995
 SCORE_REL_TOL = 1e-2
+# ODIN at ε = 0 against MCM at the same (fp32, math-path) precision: the
+# same kernels on the same features, so equal to fp32 noise
+ODIN_ZERO_REL_TOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -506,24 +530,41 @@ def kernel_phase() -> dict:
 
 # -- 3. slice phase --------------------------------------------------------------
 
-def _write_tree(root: str, seed: int = 0) -> int:
-    """Synthetic JPEG tree: ImageNet/val (8 wnid dirs) and two OOD sets,
-    non-square images so the resize and the crop both run."""
+def _write_images(base: str, classes, n: int, rng) -> None:
+    """``n`` random JPEGs spread over the class dirs ``classes`` under
+    ``base``, non-square so the resize and the crop both run."""
     from PIL import Image
+    for i in range(n):
+        d = os.path.join(base, classes[i % len(classes)])
+        os.makedirs(d, exist_ok=True)
+        w, h = (int(x) for x in rng.integers(232, 400, size=2))
+        arr = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        Image.fromarray(arr).save(os.path.join(d, f"{i:05d}.jpg"), quality=90)
+
+
+def _write_tree(root: str, seed: int = 0) -> int:
+    """Synthetic JPEG tree: ImageNet/val (8 wnid dirs) and two OOD sets."""
     rng = np.random.default_rng(seed)
     layout = [(os.path.join(root, "ImageNet", "val"), 8, N_ID),
               (os.path.join(root, "ImageNet_OOD_dataset", "iNaturalist"), 2, N_OOD),
               (os.path.join(root, "ImageNet_OOD_dataset", "dtd", "images"), 2, N_OOD)]
     batches = 0
     for base, n_cls, n in layout:
-        for i in range(n):
-            d = os.path.join(base, f"n{i % n_cls:08d}")
-            os.makedirs(d, exist_ok=True)
-            w, h = (int(x) for x in rng.integers(232, 400, size=2))
-            arr = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
-            Image.fromarray(arr).save(os.path.join(d, f"{i:05d}.jpg"), quality=90)
+        _write_images(base, [f"n{c:08d}" for c in range(n_cls)], n, rng)
         batches += -(-n // BATCH)
     return batches
+
+
+def _write_imagenet10(root: str, seed: int = 1) -> None:
+    """ImageNet10 train and val trees, class dirs named by its wnids (the
+    labels code counts them)."""
+    from mcm_tpu_torch.data.labels import subset_wnids
+    rng = np.random.default_rng(seed)
+    wnids = subset_wnids("ImageNet10")
+    _write_images(os.path.join(root, "ImageNet10", "train"), wnids,
+                  MAHA_TRAIN_PER_CLASS * len(wnids), rng)
+    _write_images(os.path.join(root, "ImageNet10", "val"), wnids, MAHA_N_VAL,
+                  rng)
 
 
 def write_snapshot(ckpt: str) -> dict:
@@ -544,67 +585,107 @@ def write_snapshot(ckpt: str) -> dict:
             "snapshot_write_s": time.perf_counter() - t}
 
 
-def slice_phase(work: str) -> dict:
+def _all_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from mcm_tpu_torch.tools import bsd_probe, qkv_probe
+    return dict(_counters(), bsd_probe=bsd_probe.probe,
+                bsd_attention_packed=qkv_probe.bsd_fused)
+
+
+def cli_run(work: str, argv) -> dict:
+    """One in-process run of the eval CLI from ``work`` on the card, with
+    every launch count set to 0 just before it and read just after."""
     import warnings
 
     from mcm_tpu_torch.cli.eval_ood import main as cli_main
-    from mcm_tpu_torch.ops.attention import bsd_attention
-    from mcm_tpu_torch.ops.mcm_score import mcm_score
-
-    data = os.path.join(work, "datasets")
-    ckpt = os.path.join(work, "ckpt")
-    snapshot = write_snapshot(ckpt)
-    print(f"wrote the synthetic ViT-B/16 snapshot in "
-          f"{snapshot['snapshot_write_s']:.2f}s", flush=True)
-    n_batches = _write_tree(data)
-    # --allow_random_weights only for the hash tokenizer (no vocab here):
-    # the weights come from the snapshot, converted by the CLI
-    argv = ["--in_dataset", "ImageNet", "--root-dir", data,
-            "--CLIP_ckpt", "ViT-B/16", "--score", "MCM", "--precision", "fast",
-            "-b", str(BATCH), "--allow_random_weights", "--ckpt_dir", ckpt,
-            "--out_datasets", *OOD_SETS, "--name", "chip_smoke",
-            "--num_workers", "8", "--device", "cuda"]
+    counters = _all_counters()
     cwd = os.getcwd()
     os.chdir(work)
     try:
         torch.cuda.reset_peak_memory_stats()
-        bsd_attention.launches = 0
-        mcm_score.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         t = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             results = cli_main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = {"bsd_attention": bsd_attention.launches,
-                    "mcm_score": mcm_score.launches}
+        launches = {n: fn.launches for n, fn in counters.items()}
     finally:
         os.chdir(cwd)
-    peak = torch.cuda.max_memory_allocated()
-    random_weights = [str(w.message) for w in caught
-                      if "RANDOM WEIGHTS" in str(w.message)]
-    check(not random_weights, f"the CLI ran random weights: {random_weights}")
-    npz = os.path.join(ckpt, "ViT-B-16.npz")
-    check(os.path.exists(npz), f"the CLI did not cache its conversion at {npz}")
+    warned = [str(w.message) for w in caught]
+    check(not [w for w in warned if "RANDOM WEIGHTS" in w],
+          f"the CLI ran random weights: {warned}")
+    return {"results": results, "launches": launches, "cli_wall_s": wall,
+            "warnings": warned,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
 
-    check(launches["bsd_attention"] == 12 * n_batches,
-          f"bsd_attention launched {launches['bsd_attention']} times, want "
-          f"12 x {n_batches} image batches")
-    check(launches["mcm_score"] == n_batches,
-          f"mcm_score launched {launches['mcm_score']} times, want "
-          f"{n_batches}")
-    log_dir = os.path.join(work, "results", "ImageNet", "MCM",
-                           "CLIP_ViT-B/16_T_1_ID_chip_smoke")
-    csv = os.path.join(log_dir, "chip_smoke.csv")
-    check(os.path.exists(csv), f"no CSV at {csv}")
-    n_scores = 0
-    for name, n in (("ID_ImageNet", N_ID),) + tuple((o, N_OOD) for o in OOD_SETS):
+
+def _cli_argv(data: str, ckpt: str, name: str, *flags) -> list:
+    # --allow_random_weights only for the hash tokenizer (no vocab here):
+    # the weights come from the converted snapshot
+    return ["--root-dir", data, "--CLIP_ckpt", "ViT-B/16",
+            "--precision", "fast", "--allow_random_weights",
+            "--ckpt_dir", ckpt, "--out_datasets", *OOD_SETS, "--name", name,
+            "--num_workers", "8", "--device", "cuda", *flags]
+
+
+def _log_dir(work: str, in_dataset: str, score: str, name: str) -> str:
+    return os.path.join(work, "results", in_dataset, score,
+                        f"CLIP_ViT-B/16_T_1_ID_{name}")
+
+
+def _read_log(log_dir: str) -> str:
+    with open(os.path.join(log_dir, "ood_eval_info.log")) as f:
+        return f.read()
+
+
+def _loop_rate(log: str):
+    m = re.search(r"throughput: ([0-9.]+) img/s", log)
+    return float(m.group(1)) if m else None
+
+
+def _check_scores(log_dir: str, want: dict) -> None:
+    for name, n in want.items():
         s = np.load(os.path.join(log_dir, f"{name}_scores.npy"))
         check(s.shape == (n,) and bool(np.isfinite(s).all()),
-              f"{name} scores: shape {s.shape}, finite {np.isfinite(s).all()}")
-        n_scores += n
-    with open(os.path.join(log_dir, "ood_eval_info.log")) as f:
-        log = f.read()
+              f"{log_dir} {name} scores: shape {s.shape}, want ({n},), "
+              f"finite {np.isfinite(s).all()}")
+
+
+def _check_only(launches: dict, want: dict, what: str) -> None:
+    """The launch counts of one run: ``want`` for its kernels, 0 for every
+    other kernel."""
+    full = {n: want.get(n, 0) for n in launches}
+    check(launches == full, f"{what}: launches {launches}, want {full}")
+
+
+def slice_phase(work: str) -> dict:
+    """The CLI runs of the main path and the slice's other paths; returns
+    each path kernel's launches summed over the runs."""
+    data = os.path.join(work, "datasets")
+    ckpt = os.path.join(work, "ckpt")
+    snapshot = write_snapshot(ckpt)
+    print(f"wrote the synthetic ViT-B/16 snapshot in "
+          f"{snapshot['snapshot_write_s']:.2f}s", flush=True)
+    n_batches = _write_tree(data)
+    run = cli_run(work, _cli_argv(data, ckpt, "chip_smoke", "--in_dataset",
+                                  "ImageNet", "--score", "MCM", "-b",
+                                  str(BATCH)))
+    launches = run["launches"]
+    npz = os.path.join(ckpt, "ViT-B-16.npz")
+    check(os.path.exists(npz), f"the CLI did not cache its conversion at {npz}")
+    _check_only(launches, {"bsd_attention": 12 * n_batches,
+                           "mcm_score": n_batches},
+                f"MCM run over {n_batches} image batches")
+    log_dir = _log_dir(work, "ImageNet", "MCM", "chip_smoke")
+    csv = os.path.join(log_dir, "chip_smoke.csv")
+    check(os.path.exists(csv), f"no CSV at {csv}")
+    _check_scores(log_dir, dict([("ID_ImageNet", N_ID)]
+                                + [(o, N_OOD) for o in OOD_SETS]))
+    n_scores = N_ID + N_OOD * len(OOD_SETS)
+    log = _read_log(log_dir)
     conv = re.search(r"weights resolved in ([0-9.]+)s from (.*)$", log, re.M)
     check(conv is not None and "pytorch_model.bin" not in conv.group(2)
           and "ViT-B-16.npz" in conv.group(2),
@@ -612,7 +693,6 @@ def slice_phase(work: str) -> dict:
           f"{conv.group(0) if conv else None}")
     print(f"the CLI converted the snapshot in {float(conv.group(1)):.2f}s",
           flush=True)
-    m = re.search(r"throughput: ([0-9.]+) img/s", log)
     stages = re.findall(r"^ +(\w+): +([0-9.]+)s total .*$", log, re.M)
     out = {"phase": "slice", "model": "ViT-B/16 (12 layers, width 768; text "
            "12 layers, width 512)", "weights": "converted from a synthetic HF "
@@ -620,37 +700,249 @@ def slice_phase(work: str) -> dict:
            "conversion_s": float(conv.group(1)),
            "precision": "fast", "batch": BATCH,
            "image_batches": n_batches, "images": n_scores,
-           "launches": launches, "results": results,
-           "loop_images_per_s": float(m.group(1)) if m else None,
+           "launches": launches, "results": run["results"],
+           "loop_images_per_s": _loop_rate(log),
            "loop_stage_seconds": {k: float(v) for k, v in stages},
-           "cli_wall_s": wall, "cli_images_per_s_incl_startup": n_scores / wall,
-           "max_memory_allocated_bytes": peak,
+           "cli_wall_s": run["cli_wall_s"],
+           "cli_images_per_s_incl_startup": n_scores / run["cli_wall_s"],
+           "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
            "csv": open(csv).read().strip().splitlines()}
     out.update(math_path_check(data, ckpt))
     emit(out)
-    return launches
+    path = {"bsd_attention": launches["bsd_attention"],
+            "mcm_score": launches["mcm_score"]}
+    for fn in (maha_run, odin_run, accuracy_resume_runs):
+        for k, v in fn(work, data, ckpt).items():
+            path[k] += v
+    return path
 
 
-def math_path_check(data: str, ckpt: str, device: str = "cuda") -> dict:
-    """One ID batch through the kernels and through the math paths
-    (attn_impl="xla", impl="torch") on the same card and weights."""
-    import dataclasses
+def maha_run(work: str, data: str, ckpt: str) -> dict:
+    """``--score maha`` on ImageNet10 at ``-b 96``: train-set features and
+    templates, ID scores, and OOD scores without their tails."""
+    _write_imagenet10(data)
+    tpl = os.path.join(work, "img_templates")
+    run = cli_run(work, _cli_argv(data, ckpt, "chip_smoke_maha",
+                                  "--in_dataset", "ImageNet10", "--score",
+                                  "maha", "-b", str(MAHA_BATCH),
+                                  "--template_dir", tpl))
+    n_train = MAHA_TRAIN_PER_CLASS * 10
+    batches = {"train": -(-n_train // MAHA_BATCH),
+               "id": -(-MAHA_N_VAL // MAHA_BATCH),
+               "ood_full": len(OOD_SETS) * (N_OOD // MAHA_BATCH)}
+    n_batches = sum(batches.values())
+    _check_only(run["launches"], {"bsd_attention": 12 * n_batches},
+                f"maha run over {batches} image batches")
+    check(not [w for w in run["warnings"] if "rank-deficient" in w],
+          f"maha run with N = {n_train} warned of a rank-deficient "
+          f"covariance: {run['warnings']}")
+    path = os.path.join(tpl, "templates_CLIP_ViT-B-16_ImageNet10_250_False.npz")
+    check(os.path.exists(path), f"no Mahalanobis templates at {path}")
+    from mcm_tpu_torch.config import CLIP_CONFIGS
+    d = CLIP_CONFIGS["ViT-B/16"]().vision.projection_dim
+    with np.load(path) as t:
+        check("weight_sig" in t and t["classwise_mean"].shape == (10, d)
+              and t["precision"].shape == (d, d),
+              f"templates at {path}: keys {t.files}, shapes "
+              f"{t['classwise_mean'].shape}, {t['precision'].shape}")
+        weight_sig = json.loads(str(t["weight_sig"]))
+    log_dir = _log_dir(work, "ImageNet10", "maha", "chip_smoke_maha")
+    tail = N_OOD // MAHA_BATCH * MAHA_BATCH
+    _check_scores(log_dir, dict([("ID_ImageNet10", MAHA_N_VAL)]
+                                + [(o, tail) for o in OOD_SETS]))
+    csv = os.path.join(log_dir, "chip_smoke_maha.csv")
+    check(os.path.exists(csv), f"no CSV at {csv}")
+    log = _read_log(log_dir)
+    est = re.search(r"maha templates: (\d+) train features in ([0-9.]+)s .*"
+                    r"fp64 covariance\+inverse ([0-9.]+)s", log)
+    cond = re.search(r"cond number: (\S+)", log)
+    check(est is not None and int(est.group(1)) == n_train and cond,
+          f"maha log lacks its template lines: {est}, {cond}")
+    images = n_train + MAHA_N_VAL + len(OOD_SETS) * tail
+    emit({"phase": "slice_maha", "in_dataset": "ImageNet10",
+          "batch": MAHA_BATCH, "image_batches": batches,
+          "launches": run["launches"], "results": run["results"],
+          "train_features": n_train,
+          "template_extract_s": float(est.group(2)),
+          "template_estimate_s": float(est.group(3)),
+          "cond_number": float(cond.group(1)),
+          "weight_sig": weight_sig, "ood_scores_each": tail,
+          "cli_wall_s": run["cli_wall_s"], "images": images,
+          "loop_images_per_s": _loop_rate(log),
+          "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+          "csv": open(csv).read().strip().splitlines()})
+    return {"bsd_attention": run["launches"]["bsd_attention"]}
+
+
+def odin_run(work: str, data: str, ckpt: str) -> dict:
+    """``--score odin`` at ``-b 128``: one MCM launch per image batch and
+    no other kernel; then ODIN at ε = 0 against MCM on one batch."""
+    run = cli_run(work, _cli_argv(data, ckpt, "chip_smoke_odin",
+                                  "--in_dataset", "ImageNet", "--score",
+                                  "odin", "-b", str(BATCH)))
+    n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
+    _check_only(run["launches"], {"mcm_score": n_batches},
+                f"odin run over {n_batches} image batches")
+    log_dir = _log_dir(work, "ImageNet", "odin", "chip_smoke_odin")
+    _check_scores(log_dir, dict([("ID_ImageNet", N_ID)]
+                                + [(o, N_OOD) for o in OOD_SETS]))
+    csv = os.path.join(log_dir, "chip_smoke_odin.csv")
+    check(os.path.exists(csv), f"no CSV at {csv}")
+    log = _read_log(log_dir)
+    emit({"phase": "slice_odin", "batch": BATCH, "image_batches": n_batches,
+          "noise_magnitude": 0.0014, "launches": run["launches"],
+          "results": run["results"], "cli_wall_s": run["cli_wall_s"],
+          "images": N_ID + N_OOD * len(OOD_SETS),
+          "loop_images_per_s": _loop_rate(log),
+          "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+          "csv": open(csv).read().strip().splitlines(),
+          **odin_batch_check(data, ckpt)})
+    return {"mcm_score": run["launches"]["mcm_score"]}
+
+
+def odin_batch_check(data: str, ckpt: str) -> dict:
+    """One ID batch: ODIN at ε = 0 against MCM under ODIN's precision (fp32,
+    math paths) on the same card and weights, each reaching the MCM kernel
+    once and no other kernel; then ODIN at the CLI's ε alone: its device
+    time per batch and its peak memory."""
+    import gc
 
     from mcm_tpu_torch.config import Precision
-    from mcm_tpu_torch.data import DataPipeline, get_test_labels, set_val_loader
     from mcm_tpu_torch.parallel import EvalStep
+    from mcm_tpu_torch.parallel.eval_step import _odin_safe
+
+    params, odin0, text, images = _one_batch(data, ckpt, score="odin",
+                                             noise_magnitude=0.0)
+    mcm = EvalStep(odin0.cfg, score="MCM",
+                   precision=_odin_safe(Precision.fast()), device="cuda")
+    counters = _all_counters()
+    scores = {}
+    for name, step in (("odin_eps0", odin0), ("mcm", mcm)):
+        for fn in counters.values():
+            fn.launches = 0
+        scores[name] = step.score(params, images, text)
+        torch.cuda.synchronize()
+        _check_only({n: fn.launches for n, fn in counters.items()},
+                    {"mcm_score": 1}, f"{name} on one batch")
+    delta = float((scores["odin_eps0"] - scores["mcm"]).abs().max())
+    scale = float(scores["mcm"].abs().max())
+    check(delta <= ODIN_ZERO_REL_TOL * scale,
+          f"ODIN at eps 0 vs MCM: max delta {delta} > {ODIN_ZERO_REL_TOL} x "
+          f"{scale}")
+    odin = EvalStep(odin0.cfg, score="odin", precision=Precision.fast(),
+                    device="cuda", noise_magnitude=0.0014)
+    del scores
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s = odin.score(params, images, text)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(s).all()), "ODIN scores of one batch not finite")
+    return {"odin_eps0_vs_mcm_max_delta": delta,
+            "odin_eps0_vs_mcm_tol": ODIN_ZERO_REL_TOL * scale,
+            "odin_batch_ms": cuda_ms(lambda: odin.score(params, images, text),
+                                     iters=3, warmup=1),
+            "odin_batch_profile": profile_batches(
+                lambda: odin.score(params, images, text), n=2),
+            "odin_batch_allocated_before_bytes": base,
+            "odin_batch_max_memory_allocated_bytes": peak}
+
+
+def accuracy_resume_runs(work: str, data: str, ckpt: str) -> dict:
+    """``--score MCM --eval_accuracy --trace_dir``, then the same with
+    ``--resume``: the second run launches nothing and uploads no
+    parameter."""
+    import gc
+    import glob
+
+    trace_dir = os.path.join(work, "trace")
+    argv = _cli_argv(data, ckpt, "chip_smoke_acc", "--in_dataset", "ImageNet",
+                     "--score", "MCM", "-b", str(BATCH), "--eval_accuracy",
+                     "--trace_dir", trace_dir)
+    run = cli_run(work, argv)
+    id_b = -(-N_ID // BATCH)
+    ood_b = len(OOD_SETS) * -(-N_OOD // BATCH)
+    _check_only(run["launches"], {"bsd_attention": 12 * (id_b + ood_b),
+                                  "mcm_score": ood_b},
+                f"eval_accuracy run over {id_b} ID and {ood_b} OOD batches")
+    log_dir = _log_dir(work, "ImageNet", "MCM", "chip_smoke_acc")
+    log = _read_log(log_dir)
+    acc = re.search(r"ID zero-shot accuracy: .*$", log, re.M)
+    check(acc is not None, "no ID zero-shot accuracy line in the log")
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(traces) == 1, f"want one trace under {trace_dir}: {traces}")
+    with open(traces[0]) as f:
+        trace = f.read()
+    check("bsd_attention" in trace, "the trace does not name the bsd kernel")
+    csv = os.path.join(log_dir, "chip_smoke_acc.csv")
+    with open(csv) as f:
+        first_csv = f.read()
+    _check_scores(log_dir, dict([("ID_ImageNet", N_ID)]
+                                + [(o, N_OOD) for o in OOD_SETS]))
+    emit({"phase": "slice_eval_accuracy", "batch": BATCH,
+          "launches": run["launches"], "accuracy_line": acc.group(0),
+          "trace_bytes": os.path.getsize(traces[0]),
+          "cli_wall_s": run["cli_wall_s"],
+          "images": N_ID + N_OOD * len(OOD_SETS),
+          "loop_images_per_s": _loop_rate(log),
+          "max_memory_allocated_bytes": run["max_memory_allocated_bytes"]})
+
+    # the model's size on the card: its matrices in bf16, the rest fp32
+    with np.load(os.path.join(ckpt, "ViT-B-16.npz")) as w:
+        model_bytes = 2 * sum(int(w[k].size) for k in w.files)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    resumed = cli_run(work, argv + ["--resume"])
+    peak = resumed["max_memory_allocated_bytes"]
+    _check_only(resumed["launches"], {}, "fully cached --resume")
+    check(peak < model_bytes, f"fully cached --resume peaked at {peak} bytes "
+          f"on the card, the model is {model_bytes}: parameters uploaded?")
+    log = _read_log(log_dir)
+    for line in ("resume: loaded cached ID features",
+                 "resume: loaded cached text features",
+                 "resume: loaded cached scores for dtd"):
+        check(line in log, f"resumed run's log lacks {line!r}")
+    with open(csv) as f:
+        check(f.read() == first_csv, "the resumed run wrote another CSV")
+    emit({"phase": "slice_resume", "launches": resumed["launches"],
+          "cli_wall_s": resumed["cli_wall_s"],
+          "allocated_before_bytes": base, "max_memory_allocated_bytes": peak,
+          "model_bytes_bf16": model_bytes, "same_csv": True})
+    return {"bsd_attention": run["launches"]["bsd_attention"],
+            "mcm_score": run["launches"]["mcm_score"]}
+
+
+def _one_batch(data: str, ckpt: str, **over) -> tuple:
+    """The model, its step, the prompt features and one ID batch on the
+    card, built as the CLI builds them (``over``: RunConfig fields)."""
+    from mcm_tpu_torch.data import DataPipeline, get_test_labels, set_val_loader
     from mcm_tpu_torch.runner import RunConfig, _encode_prompts, build_model_and_step
 
     cfg = RunConfig(in_dataset="ImageNet", root_dir=data, batch_size=BATCH,
-                    allow_random_weights=True, ckpt_dir=ckpt, device=device)
+                    allow_random_weights=True, ckpt_dir=ckpt, device="cuda",
+                    **over)
     params, tokenizer, step = build_model_and_step(cfg)
     val = set_val_loader("ImageNet", data)
     text = _encode_prompts(step, params, tokenizer,
                            get_test_labels("ImageNet", val), False)
     batch = next(iter(DataPipeline(val, BATCH, num_workers=8)))
-    images = step.put_batch(batch.images)
+    return params, step, text, step.put_batch(batch.images)
+
+
+def math_path_check(data: str, ckpt: str) -> dict:
+    """One ID batch through the kernels and through the math paths
+    (attn_impl="xla", impl="torch") on the same card and weights."""
+    import dataclasses
+
+    from mcm_tpu_torch.config import Precision
+    from mcm_tpu_torch.parallel import EvalStep
+
+    params, step, text, images = _one_batch(data, ckpt)
     math_step = EvalStep(step.cfg, precision=dataclasses.replace(
-        Precision.fast(), attn_impl="xla"), device=device)
+        Precision.fast(), attn_impl="xla"), device="cuda")
     f_k = step.features(params, images)
     f_m = math_step.features(params, images)
     cos = torch.nn.functional.cosine_similarity(f_k, f_m, dim=-1)

@@ -14,11 +14,14 @@ non-empty string parses True — the reference's argparse footgun at
 ``--device cuda|cpu`` (default ``cuda``) picks the device; without a card
 the CLI raises unless ``--device cpu`` is given.  The reference's ``--gpu``
 flag is accepted and ignored; ``--feat_dim`` is accepted for compatibility
-but derived from the checkpoint.  Options whose code is not ported yet
-(``--score maha|odin``, ``--model vit-Linear|CLIP-Linear``, ``--resume``,
-``--eval_accuracy``, ``--fast_decode``, ``--model_parallel > 1``,
-``--trace_dir``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item.
+but derived from the checkpoint.  Every score runs, ``maha`` (templates
+from the ID train split under ``--template_dir``, estimated with
+``--generate``, or read from there) and ``odin`` included, as do
+``--eval_accuracy``, ``--resume`` and ``--trace_dir`` (a ``torch.profiler``
+Chrome trace of the ID pass).  Options whose code is not ported yet
+(``--model vit-Linear|CLIP-Linear``, ``--fast_decode``,
+``--model_parallel > 1``, ``--n_devices > 1``) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 import argparse
@@ -112,7 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--allow_random_weights", action="store_true",
                         help="smoke/throughput runs without checkpoints")
     parser.add_argument("--trace_dir", default=None, type=str,
-                        help="profiler trace of the ID pass (not ported)")
+                        help="torch.profiler trace of the ID pass")
     parser.add_argument("--eval_accuracy", action="store_true",
                         help="also log ID zero-shot top-1/top-5 accuracy")
     parser.add_argument("--fast_decode", action="store_true",

@@ -23,9 +23,6 @@ from mcm_tpu_torch.scores.clip_scores import (CLIP_SCORES, compute_scores,
 
 _SCORE_CODES = {"MCM": 0, "max-logit": 1, "energy": 2, "entropy": 3, "var": 4}
 
-#: the JAX package's path names, as ``fused_mcm_scores`` takes them too
-_IMPL_ALIASES = {"pallas": "cuda", "xla": "torch"}
-
 
 def mcm_score_reference(image_feats: torch.Tensor, text_feats: torch.Tensor,
                         score: str = "MCM", T: float = 1.0) -> torch.Tensor:
@@ -113,17 +110,14 @@ def fused_mcm_scores(image_feats: torch.Tensor, text_feats: torch.Tensor,
     """[B, D] raw image features × [C, D] normalized text → [B] scores.
 
     ``impl``: "cuda" (the kernel; its plain version on a CPU tensor) |
-    "torch" (the identical-math :func:`compute_scores`) | None (auto: the
-    kernel on a CUDA tensor, the torch path on the CPU).  The JAX package's
-    names are taken too: "pallas" is "cuda" and "xla" is "torch".  Any
-    other name raises, where the JAX package sends it to XLA."""
+    None (auto: the kernel on a CUDA tensor, the torch path on the CPU) |
+    any other name (the identical-math :func:`compute_scores`; "torch"
+    names it).  The JAX package's names are taken too: "pallas" is "cuda"
+    and "xla", like every name JAX does not know, is the torch path."""
     if score not in CLIP_SCORES:
         raise ValueError(f"unknown score {score!r}")
     if impl is None:
         impl = "cuda" if image_feats.is_cuda else "torch"
-    impl = _IMPL_ALIASES.get(impl, impl)
-    if impl == "cuda":
+    if impl in ("cuda", "pallas"):
         return mcm_score(image_feats, text_feats, score, float(T))
-    if impl == "torch":
-        return compute_scores(image_feats, text_feats, score=score, T=float(T))
-    raise ValueError(f"unknown impl {impl!r}")
+    return compute_scores(image_feats, text_feats, score=score, T=float(T))

@@ -11,6 +11,7 @@ multi-card data parallelism is ``ROADMAP.md`` Queue 1, item 9.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -23,6 +24,22 @@ from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models.convert import from_jax_params
 from mcm_tpu_torch.ops.mcm_score import fused_mcm_scores
 from mcm_tpu_torch.scores.clip_scores import CLIP_SCORES, l2_normalize
+from mcm_tpu_torch.scores.mahalanobis import mahalanobis_score
+from mcm_tpu_torch.scores.odin import clip_odin_logits_fn, odin_perturb
+
+
+def _odin_safe(precision: Precision) -> Precision:
+    """Precision policy for ODIN programs: the ε-nudge (~0.005 in
+    normalized-pixel space) is AT the bf16 ULP for |x|≥1, so fast-mode
+    activations quantize it away; and no hand-written kernel has a
+    backward.  fp32 + the math paths match the fp32 reference
+    (``detection_util.py:122-146``).  ``softmax_dtype`` is pinned fp32
+    too: the gradient flows back through the [B, H, S, S] probabilities,
+    and bf16 rounding there flips gradient signs near zero — the one
+    place sign(grad) is the entire signal."""
+    return dataclasses.replace(precision, activation_dtype=torch.float32,
+                               softmax_dtype=torch.float32,
+                               attn_impl="xla", mlp_impl="xla")
 
 
 class EvalStep:
@@ -30,19 +47,25 @@ class EvalStep:
 
     ``score(params, images_u8, text_feats)``   → [B] fp32 OOD scores
     ``features(params, images_u8)``            → [B, D] image features
+    ``maha(features, mean, precision_mat)``    → [B] Mahalanobis scores
     ``encode_text(params, ids, mask)``         → [C, D] normalized prompts
+
+    ``score="odin"`` perturbs each batch against the gradient of its own
+    pseudo-label NLL (``noise_magnitude``) and scores it with MCM, all
+    under :func:`_odin_safe`'s precision.
     """
 
     def __init__(self, cfg: CLIPConfig, score: str = "MCM", T: float = 1.0,
-                 precision: Precision = Precision.fast(), device="cuda"):
-        if score == "odin":
-            raise NotImplementedError(
-                "score='odin' is not ported yet: ROADMAP.md Queue 1, item 4")
-        if score not in CLIP_SCORES:
+                 precision: Precision = Precision.fast(), device="cuda",
+                 noise_magnitude: float = 0.0014):
+        if score not in CLIP_SCORES + ("odin",):
             raise ValueError(f"unknown score {score!r}")
+        if score == "odin":
+            precision = _odin_safe(precision)
         self.cfg = cfg
         self.score_name = score
         self.T = float(T)
+        self.noise_magnitude = float(noise_magnitude)
         self.precision = precision
         self.device = resolve_device(device)
         apply_matmul_policy(precision)
@@ -77,20 +100,47 @@ class EvalStep:
         return tclip.encode_image(params, self.cfg.vision, x,
                                   self.precision).float()
 
-    @torch.inference_mode()
     def score(self, params: tclip.CLIP, images_u8: torch.Tensor,
               text_feats: torch.Tensor,
               impl: Optional[str] = None) -> torch.Tensor:
         """[B] fp32 scores; ``impl`` picks the score path as in
         :func:`mcm_tpu_torch.ops.mcm_score.fused_mcm_scores`."""
-        feats = self.features(params, images_u8)
-        return fused_mcm_scores(feats, text_feats, self.score_name, self.T,
-                                impl=impl)
+        if self.score_name == "odin":
+            return self._odin_score(params, images_u8, text_feats, impl)
+        with torch.inference_mode():
+            feats = self.features(params, images_u8)
+            return fused_mcm_scores(feats, text_feats, self.score_name,
+                                    self.T, impl=impl)
 
-    def maha(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Mahalanobis scoring is not ported yet: ROADMAP.md Queue 1, "
-            "item 3")
+    def _odin_score(self, params: tclip.CLIP, images_u8: torch.Tensor,
+                    text_feats: torch.Tensor,
+                    impl: Optional[str]) -> torch.Tensor:
+        """ODIN input preprocessing (reference ``detection_util.py:122-146``):
+        nudge the normalized pixels against the NLL gradient sign, then
+        score the perturbed batch with temperature-scaled max-softmax.
+        :func:`odin_perturb` builds its graph outside inference mode; only
+        the final encode and score run in it."""
+        x = normalize_on_device(images_u8, CLIP_MEAN, CLIP_STD,
+                                dtype=self.precision.activation_dtype)
+        logits_fn = clip_odin_logits_fn(
+            lambda xi: tclip.encode_image(params, self.cfg.vision, xi,
+                                          self.precision),
+            text_feats, self.T)
+        x = odin_perturb(logits_fn, x, self.noise_magnitude, std=CLIP_STD)
+        with torch.inference_mode():
+            feats = tclip.encode_image(params, self.cfg.vision, x,
+                                       self.precision).float()
+            return fused_mcm_scores(feats, text_feats, "MCM", self.T,
+                                    impl=impl)
+
+    @torch.inference_mode()
+    def maha(self, features: torch.Tensor, classwise_mean: torch.Tensor,
+             precision_mat: torch.Tensor,
+             normalize: bool = False) -> torch.Tensor:
+        """[B] Mahalanobis scores of image features against the class
+        means and shared precision matrix (lower = more ID)."""
+        return mahalanobis_score(features, classwise_mean, precision_mat,
+                                 normalize=normalize)
 
     # -- text side (run once per dataset) --------------------------------------
 

@@ -11,16 +11,21 @@ plots → CSV, on one CUDA device:
   batch's scores are read back one batch behind, so decode, H2D, compute
   and D2H overlap;
 * per-dataset score arrays are written under the same ``results/…``
-  layout as the JAX package.
+  layout as the JAX package, and ``--resume`` reuses them (and the cached
+  ID and text features) per dataset when ``cache_meta.json`` says they
+  were produced under the same configuration and weights;
+* Mahalanobis templates are cached as ``.npz`` (the reference uses
+  ``.pt``, ``detection_util.py:175-176``; a reference pair is read too).
 
-This slice covers ``--model CLIP`` with the five logit scores.  The other
-options of the JAX runner raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+This slice covers ``--model CLIP`` with every score (the five logit
+scores, ``maha`` and ``odin``).  The options of the JAX runner not ported
+yet raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 import warnings
@@ -33,18 +38,22 @@ from mcm_tpu_torch.config import (CLIP_CONFIGS, CLIP_FEAT_DIMS, resolve_device,
                                   resolve_precision)
 from mcm_tpu_torch.data import (DataPipeline, default_out_datasets,
                                 get_test_labels, set_ood_loader,
-                                set_val_loader, validate_out_datasets)
+                                set_train_loader, set_val_loader,
+                                validate_out_datasets)
 from mcm_tpu_torch.metrics import get_and_print_results, print_measures
 from mcm_tpu_torch.models.convert import (file_identity, resolve_clip_params,
                                           resolve_clip_weight_source)
 from mcm_tpu_torch.models.init import init_clip
 from mcm_tpu_torch.parallel import EvalStep
-from mcm_tpu_torch.scores.clip_scores import l2_normalize
+from mcm_tpu_torch.scores.clip_scores import compute_scores_host, l2_normalize
+from mcm_tpu_torch.scores.mahalanobis import (estimate_mean_precision,
+                                              load_pt_templates,
+                                              reference_template_paths)
 from mcm_tpu_torch.text import CLIPTokenizer, build_prompts
 from mcm_tpu_torch.text.prompts import DEFAULT_TEMPLATE, OPENAI_IMAGENET_TEMPLATES
-from mcm_tpu_torch.utils import Telemetry, save_scores, setup_log
+from mcm_tpu_torch.utils import Telemetry, load_scores, save_scores, setup_log
 from mcm_tpu_torch.utils.plotting import plot_distribution
-from mcm_tpu_torch.utils.results import save_as_dataframe
+from mcm_tpu_torch.utils.results import atomic_write, save_as_dataframe
 from mcm_tpu_torch.utils.seed import setup_seed
 from mcm_tpu_torch.utils.telemetry import maybe_profile
 
@@ -104,26 +113,16 @@ class RunConfig:
 def check_ported(cfg: RunConfig) -> None:
     """Raise for every option of the JAX runner this slice does not port."""
     todo = []
-    if cfg.score == "maha":
-        todo.append("--score maha: ROADMAP.md Queue 1, item 3")
-    if cfg.score == "odin":
-        todo.append("--score odin: ROADMAP.md Queue 1, item 4")
     if cfg.model == "vit-Linear":
         todo.append("--model vit-Linear: ROADMAP.md Queue 1, item 6")
     if cfg.model == "CLIP-Linear":
         todo.append("--model CLIP-Linear: ROADMAP.md Queue 1, item 8")
-    if cfg.resume:
-        todo.append("--resume: ROADMAP.md Queue 1, item 5")
-    if cfg.eval_accuracy:
-        todo.append("--eval_accuracy: ROADMAP.md Queue 1, item 5")
     if cfg.fast_decode:
         todo.append("--fast_decode (native decoder): ROADMAP.md Queue 1, "
                     "item 2")
     if cfg.model_parallel > 1 or (cfg.n_devices or 1) > 1:
         todo.append("--model_parallel / --n_devices > 1: ROADMAP.md Queue 1, "
                     "item 9")
-    if cfg.trace_dir:
-        todo.append("--trace_dir: ROADMAP.md Queue 1, item 5")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
     if cfg.model != "CLIP":
@@ -163,9 +162,13 @@ class _HashTokenizer:
                               context_length)
 
 
-def build_model_and_step(cfg: RunConfig, log=None):
+def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False):
     """Resolve weights + tokenizer and build the eval step; returns the
-    model on the step's device, the tokenizer and the step."""
+    model on the step's device, the tokenizer and the step.
+
+    ``defer_put=True`` returns the HOST parameter tree instead (no device
+    upload): :func:`run_eval` uploads it with ``step.put_params`` on first
+    device use, so a fully cached ``--resume`` never touches the card."""
     check_ported(cfg)
     clip_cfg = CLIP_CONFIGS[cfg.clip_ckpt]()
     precision = resolve_precision(cfg.precision)
@@ -203,9 +206,11 @@ def build_model_and_step(cfg: RunConfig, log=None):
         warnings.warn("hash-fallback tokenizer in use (no CLIP vocab found)")
         tokenizer = _HashTokenizer(clip_cfg.text.vocab_size)
 
-    step = EvalStep(clip_cfg, score=cfg.score, T=cfg.T, precision=precision,
-                    device=cfg.device)
-    return step.put_params(params), tokenizer, step
+    # maha scores image features: its step is MCM's (features + text)
+    step = EvalStep(clip_cfg, score=cfg.score if cfg.score != "maha" else "MCM",
+                    T=cfg.T, precision=precision, device=cfg.device,
+                    noise_magnitude=cfg.noise_magnitude)
+    return (params if defer_put else step.put_params(params)), tokenizer, step
 
 
 def _encode_prompts(step: EvalStep, params, tokenizer, class_names,
@@ -296,9 +301,268 @@ def score_dataset(step: EvalStep, params, dataset, text_feats,
                   telemetry: Optional[Telemetry] = None) -> np.ndarray:
     """Stream a dataset through the score step (the reference keeps the
     final partial batch for every CLIP score — ``detection_util.py:249``
-    truncates, never drops)."""
+    truncates, never drops; only the maha OOD pass drops tails)."""
     return _stream_pass(step, lambda im: step.score(params, im, text_feats),
                         dataset, cfg, telemetry)
+
+
+def extract_features(step: EvalStep, params, dataset, cfg: RunConfig,
+                     telemetry: Optional[Telemetry] = None) -> tuple:
+    """All image features + labels for a dataset (Mahalanobis templates,
+    ``--eval_accuracy``)."""
+    return _stream_pass(step, lambda im: step.features(params, im),
+                        dataset, cfg, telemetry, collect_labels=True)
+
+
+def _weight_content_sig(cfg: RunConfig) -> Optional[Dict[str, object]]:
+    """Machine-independent content identity of the resolved weights (size
+    + sampled sha only — no path, so templates travel between hosts).
+    None when unresolvable (random-weights smoke runs)."""
+    ident = _weight_identity(cfg).get("weights")
+    if not ident or "sha256_sampled" not in ident:
+        return None
+    return {"size": ident["size"], "sha": ident["sha256_sampled"]}
+
+
+def _maha_templates(cfg: RunConfig, step: EvalStep, get_params, log,
+                    telemetry: Optional[Telemetry] = None):
+    """Estimate or load class means + precision (reference ``main:72-78``).
+
+    ``get_params`` is a zero-arg callable returning device params — called
+    only on the regenerate path, so a cached-template load stays free of
+    the parameter upload (device-free resume)."""
+    os.makedirs(cfg.template_dir, exist_ok=True)
+    # beyond the reference's tag ({model}_{in_dataset}_{max_count}_
+    # {normalize}, detection_util.py:175): the checkpoint name AND the
+    # subset flag are part of it — the reference lets B/16 and B/32 share
+    # 512-d templates, and full-train-set and 250-per-class templates
+    # collide at one path
+    ckpt_tag = cfg.clip_ckpt.replace("/", "-")
+    tag = (f"{cfg.model}_{ckpt_tag}_{cfg.in_dataset}_{cfg.max_count}_"
+           f"{cfg.normalize}" + ("_subset" if cfg.subset else ""))
+    path = os.path.join(cfg.template_dir, f"templates_{tag}.npz")
+    # --resume honors an existing template cache even under the default
+    # --generate: regenerating would re-extract the whole train set
+    regenerate = cfg.generate and not (cfg.resume and os.path.exists(path))
+    if not cfg.generate and not os.path.exists(path):
+        # migrating users: accept the reference's torch .pt template pair
+        # (detection_util.py:175-176) and re-cache it natively
+        mu_pt, prec_pt = reference_template_paths(
+            cfg.template_dir, cfg.model, cfg.in_dataset, cfg.max_count,
+            cfg.normalize)
+        if os.path.exists(mu_pt) and os.path.exists(prec_pt):
+            mu, prec = load_pt_templates(mu_pt, prec_pt)
+            log.debug(f"loaded reference-format .pt templates from "
+                      f"{mu_pt} / {prec_pt}")
+            # no weight_sig: which weights produced the pair is unknowable
+            atomic_write(path, lambda f: np.savez(
+                f, classwise_mean=mu, precision=prec,
+                normalize=cfg.normalize))
+        else:
+            raise FileNotFoundError(
+                f"--generate was disabled but no cached Mahalanobis "
+                f"templates exist at {path} (nor a reference-format pair at "
+                f"{mu_pt}); run once with --generate first")
+    sig = _weight_content_sig(cfg)
+    if regenerate or not os.path.exists(path):
+        train_ds = set_train_loader(cfg.in_dataset, cfg.root_dir,
+                                    subset=cfg.subset,
+                                    max_count=cfg.max_count)
+        t0 = time.perf_counter()
+        feats, labels = extract_features(step, get_params(), train_ds, cfg,
+                                         telemetry)
+        t_extract = time.perf_counter() - t0
+        n_cls = len(get_test_labels(cfg.in_dataset, train_ds))
+        t0 = time.perf_counter()
+        mu, prec = estimate_mean_precision(feats, labels, n_cls,
+                                           normalize=cfg.normalize)
+        t_estimate = time.perf_counter() - t0
+        cond = np.linalg.cond(prec)
+        log.debug(f"cond number: {cond}")  # reference prints this (:174)
+        log.debug(f"maha templates: {len(feats)} train features in "
+                  f"{t_extract:.3f}s ({len(feats) / max(t_extract, 1e-9):.1f}"
+                  f" img/s); fp64 covariance+inverse {t_estimate:.3f}s")
+        # normalize is recorded so a consumer cannot score with the wrong
+        # flag; weight_sig ties the templates to the weights that made them
+        extra = {"weight_sig": json.dumps(sig)} if sig else {}
+        atomic_write(path, lambda f: np.savez(
+            f, classwise_mean=mu, precision=prec,
+            normalize=cfg.normalize, **extra))
+    with np.load(path) as data:
+        # templates live OUTSIDE the fingerprint-purged log_directory, so
+        # a swapped checkpoint under an unchanged config would otherwise
+        # silently score new-weight features against old-weight mu/prec
+        if "weight_sig" in data and sig is not None:
+            stored = json.loads(str(data["weight_sig"]))
+            if stored != sig:
+                raise ValueError(
+                    f"Mahalanobis templates at {path} were estimated from "
+                    f"DIFFERENT weights than this run resolves (stored "
+                    f"size/sha {stored} vs current {sig}); rerun with "
+                    f"--generate to re-estimate, or delete the file")
+        elif "weight_sig" not in data:
+            log.debug(f"templates at {path} carry no weight fingerprint "
+                      f"(reference .pt ingestion) — weight/template "
+                      f"consistency not verifiable")
+        mu_arr, prec_arr = data["classwise_mean"], data["precision"]
+    return step.put_replicated(mu_arr), step.put_replicated(prec_arr)
+
+
+def maha_score_dataset(step: EvalStep, params, dataset, mu, prec,
+                       cfg: RunConfig, in_dist: bool,
+                       telemetry: Optional[Telemetry] = None) -> np.ndarray:
+    """Mahalanobis scoring pass.  Reference quirk preserved: OOD passes drop
+    the final partial batch (``detection_util.py:189``)."""
+    def dispatch(images):
+        f = step.features(params, images)
+        return step.maha(f, mu, prec, normalize=cfg.normalize)
+
+    return _stream_pass(step, dispatch, dataset, cfg, telemetry,
+                        drop_remainder=not in_dist)
+
+
+def _log_id_accuracy(cfg: RunConfig, feats, labels, text_feats, log) -> None:
+    """Log ID top-1/top-5 zero-shot accuracy from cached features."""
+    from mcm_tpu_torch.data.labels import prompt_permutation
+    from mcm_tpu_torch.utils.meters import zero_shot_accuracy
+    # align label indices with prompt rows (ImageNet100 prompts follow
+    # class_list order, not the sorted-wnid label order)
+    perm = prompt_permutation(cfg.in_dataset)
+    mapped = perm[labels] if perm is not None else labels
+    top1, top5 = zero_shot_accuracy(feats, np.asarray(text_feats),
+                                    mapped, topk=(1, 5))
+    log.debug(f"ID zero-shot accuracy: top1 {top1:.2f}% top5 {top5:.2f}%")
+
+
+def _id_features_cached(step, get_params, val_ds, cfg: RunConfig, log,
+                        telemetry=None):
+    """ID features (+labels), honoring --resume.  ``get_params`` (zero-arg
+    callable) is invoked only on a cache miss, so the cached path stays
+    free of the parameter upload."""
+    path = os.path.join(cfg.log_directory,
+                        f"ID_{cfg.in_dataset}_features.npz")
+    if cfg.resume and os.path.exists(path):
+        with np.load(path) as data:
+            log.debug(f"resume: loaded cached ID features for "
+                      f"{cfg.in_dataset}")
+            return data["features"], data["labels"]
+    with maybe_profile(cfg.trace_dir):
+        feats, labels = extract_features(step, get_params(), val_ds, cfg,
+                                         telemetry)
+    atomic_write(path, lambda f: np.savez(f, features=feats, labels=labels))
+    return feats, labels
+
+
+def _weight_identity(cfg: RunConfig) -> Dict[str, object]:
+    """Content identity of every weight file feeding this run (resolved
+    path + size + sampled sha).  The config alone can't fingerprint the
+    numbers: swapping the checkpoint under an unchanged ``--CLIP_ckpt``
+    changes every score while every flag stays equal — without this,
+    ``--resume`` would serve the old model's scores."""
+    if cfg.model != "CLIP":
+        check_ported(cfg)   # vit-Linear, CLIP-Linear: their items raise
+    ident: Dict[str, object] = {"weights": file_identity(
+        resolve_clip_weight_source(cfg.clip_ckpt, cfg.ckpt_dir))}
+    if cfg.finetune_ckpt:
+        ident["finetune_ckpt"] = file_identity(cfg.finetune_ckpt)
+    if cfg.score != "maha":
+        # vocab.json/merges.txt determine every token id, hence every text
+        # feature and score.  None = hash-fallback tokenizer, which itself
+        # participates in the (mis)match.  A maha run never tokenizes and
+        # its caches live in their own score-keyed log_directory, so a
+        # vocab appearing must not purge them.
+        tok_dir = CLIPTokenizer.resolve_dir(cfg.ckpt_dir)
+        ident["tokenizer"] = None if tok_dir is None else {
+            "vocab": file_identity(os.path.join(tok_dir, "vocab.json")),
+            "merges": file_identity(os.path.join(tok_dir, "merges.txt")),
+        }
+    return ident
+
+
+def _cache_meta(cfg: RunConfig) -> Dict[str, object]:
+    """The fields that determine cached artifacts' NUMBERS (scores,
+    features, text features).  The results layout keys the cache directory
+    by {in_dataset, score, model, ckpt, T, name} only — every other
+    numerically-relevant input lives here, and ``--resume`` refuses caches
+    whose recorded meta mismatches.  batch_size is included because the
+    maha OOD tail-drop truncates at a batch boundary; weight_identity
+    because the flags alone can't see a swapped checkpoint.  Call AFTER
+    weights resolve: resolution may write the ``.npz`` cache that later
+    runs load (and get fingerprinted on)."""
+    return {
+        "clip_ckpt": cfg.clip_ckpt, "model": cfg.model, "score": cfg.score,
+        "T": cfg.T_str, "in_dataset": cfg.in_dataset,
+        "template_ensemble": cfg.template_ensemble,
+        "normalize": cfg.normalize, "precision": cfg.precision,
+        "image_size": cfg.image_size, "fast_decode": cfg.fast_decode,
+        "noise_magnitude": cfg.noise_magnitude,
+        "finetune_ckpt": cfg.finetune_ckpt,
+        "allow_random_weights": cfg.allow_random_weights,
+        "max_count": cfg.max_count, "subset": cfg.subset,
+        "batch_size": cfg.batch_size,
+        "weight_identity": _weight_identity(cfg),
+    }
+
+
+#: everything run_eval persists under log_directory — the artifacts the
+#: meta fingerprint guards.  The second pattern's trailing * spans ID
+#: features (ID_<ds>_features.npz), text features
+#: (ID_<ds>_text_features.npz) and the ensemble variant (..._ens.npz).
+_CACHE_ARTIFACT_GLOBS = ("*_scores.npy", "ID_*_features*.npz")
+
+
+def _purge_stale_caches(log_directory: str, log) -> int:
+    """Delete cached score/feature/text artifacts recorded under a
+    different fingerprint.  Disabling --resume alone is not enough: a run
+    under the new config writes the new meta at start, and if it crashes
+    mid-sweep, per-dataset caches from the OLD config would sit on disk
+    matching the NEW meta."""
+    import glob
+    removed = 0
+    for pat in _CACHE_ARTIFACT_GLOBS:
+        for path in glob.glob(os.path.join(log_directory, pat)):
+            try:
+                os.unlink(path)
+                removed += 1
+            except OSError:
+                pass
+    if removed:
+        log.debug(f"purged {removed} stale cached artifact(s) recorded "
+                  f"under a different configuration")
+    return removed
+
+
+def _check_cache_meta(cfg: RunConfig, log) -> RunConfig:
+    """Validate (and record) the cache fingerprint.  On mismatch: disable
+    ``--resume`` for this run AND delete the stale artifacts."""
+    meta_path = os.path.join(cfg.log_directory, "cache_meta.json")
+    meta = _cache_meta(cfg)
+    old = None
+    try:
+        with open(meta_path) as f:
+            old = json.load(f)
+    except (OSError, ValueError):
+        pass
+    if old != meta:
+        if cfg.resume:
+            if old is None:
+                why = "no cache_meta.json (artifacts predate the check)"
+            else:
+                diff = sorted(k for k in meta
+                              if old.get(k, "<absent>") != meta[k])
+                why = "changed: " + ", ".join(
+                    f"{k} {old.get(k, '<absent>')!r}→{meta[k]!r}"
+                    for k in diff)
+            warnings.warn(
+                f"--resume: cached artifacts in {cfg.log_directory} were "
+                f"produced under a different configuration ({why}); "
+                f"ignoring them and rescoring")
+            log.debug(f"resume disabled: cache meta mismatch ({why})")
+            cfg = dataclasses.replace(cfg, resume=False)
+        _purge_stale_caches(cfg.log_directory, log)
+    with open(meta_path, "w") as f:
+        json.dump(meta, f, indent=1)
+    return cfg
 
 
 def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
@@ -312,23 +576,122 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
     log = setup_log(cfg.log_directory, cfg.name)
     telemetry = Telemetry()
 
-    params, tokenizer, step = build_model_and_step(cfg, log)
+    # build BEFORE the cache-meta check: weight resolution may write the
+    # .npz cache, and the fingerprint must record the file later runs
+    # load.  The parameters stay on the host until first device use: a
+    # fully cached --resume never uploads them.
+    params_host, tokenizer, step = build_model_and_step(cfg, log,
+                                                        defer_put=True)
+    _params: Dict[str, object] = {}
+
+    def dev_params():
+        """The model on the step's device, uploaded on first use only."""
+        if "dev" not in _params:
+            _params["dev"] = step.put_params(params_host)
+        return _params["dev"]
+
+    cfg = _check_cache_meta(cfg, log)
     out_datasets = cfg.out_datasets or default_out_datasets(cfg.in_dataset)
     # fail a typo'd --out_datasets before the ID pass
     validate_out_datasets(out_datasets)
 
     val_ds = set_val_loader(cfg.in_dataset, cfg.root_dir)
     test_labels = get_test_labels(cfg.in_dataset, val_ds)
-    text_feats = _encode_prompts(step, params, tokenizer, test_labels,
-                                 cfg.template_ensemble)
 
-    def scores_for(dataset, ds_name):
-        s = score_dataset(step, params, dataset, text_feats, cfg, telemetry)
+    needs_text = cfg.score != "maha"
+    _text: Dict[str, object] = {}
+    _text_cache = os.path.join(
+        cfg.log_directory,
+        f"ID_{cfg.in_dataset}_text_features"
+        f"{'_ens' if cfg.template_ensemble else ''}.npz")
+
+    def text_dev():
+        """Prompt features on the device, encoded (or uploaded from the
+        host cache) only when a dataset actually needs scoring."""
+        if not needs_text:
+            return None
+        if "dev" not in _text:
+            if ("host" not in _text and cfg.resume
+                    and os.path.exists(_text_cache)):
+                text_host()   # a partial resume uploads the cached copy
+            if "host" in _text:
+                _text["dev"] = step.put_replicated(_text["host"])
+            else:
+                _text["dev"] = _encode_prompts(step, dev_params(),
+                                               tokenizer, test_labels,
+                                               cfg.template_ensemble)
+        return _text["dev"]
+
+    def text_host():
+        """Host copy of the prompt features, cached to disk: a fully
+        cached --resume must touch the device ZERO times."""
+        if not needs_text:
+            return None
+        if "host" not in _text:
+            if (cfg.resume and "dev" not in _text
+                    and os.path.exists(_text_cache)):
+                with np.load(_text_cache) as data:
+                    _text["host"] = data["text_features"]
+                log.debug("resume: loaded cached text features")
+            else:
+                _text["host"] = text_dev().cpu().numpy()
+                atomic_write(_text_cache, lambda f: np.savez(
+                    f, text_features=_text["host"]))
+        return _text["host"]
+
+    _maha: Dict[str, object] = {}
+
+    def maha_templates():
+        """Lazy mu/prec: a fully cached maha --resume never builds them."""
+        if "mu" not in _maha:
+            _maha["mu"], _maha["prec"] = _maha_templates(
+                cfg, step, dev_params, log, telemetry)
+        return _maha["mu"], _maha["prec"]
+
+    def scores_for(dataset, ds_name, in_dist):
+        if cfg.resume:
+            cached = load_scores(cfg.log_directory, ds_name)
+            if cached is not None:
+                log.debug(f"resume: loaded cached scores for {ds_name}")
+                return cached
+        if cfg.score == "maha":
+            mu, prec = maha_templates()
+            s = maha_score_dataset(step, dev_params(), dataset, mu, prec,
+                                   cfg, in_dist, telemetry)
+        else:
+            s = score_dataset(step, dev_params(), dataset, text_dev(), cfg,
+                              telemetry)
         save_scores(cfg.log_directory, ds_name, s)
         return s
 
-    with maybe_profile(cfg.trace_dir):
-        in_score = scores_for(val_ds, f"ID_{cfg.in_dataset}")
+    # ODIN scores need the perturbed forward, so the shared-features path
+    # below can't produce them.  Parity runs fall through too: that path
+    # scores ID on the HOST while OOD sets score on the device, an
+    # ulp-level mix a parity run must not carry — there --eval_accuracy
+    # pays a second ID pass for the accuracy features instead.
+    if (cfg.eval_accuracy and cfg.score not in ("maha", "odin")
+            and cfg.precision != "parity"):
+        # one ID pass: features once, both the ID scores and the accuracy
+        # derived from them on the host; features cached for --resume
+        feats, labels = _id_features_cached(step, dev_params, val_ds, cfg,
+                                            log, telemetry)
+        in_score = compute_scores_host(feats, text_host(), score=cfg.score,
+                                       T=cfg.T)
+        _log_id_accuracy(cfg, feats, labels, text_host(), log)
+        save_scores(cfg.log_directory, f"ID_{cfg.in_dataset}", in_score)
+    else:
+        with maybe_profile(cfg.trace_dir):
+            in_score = scores_for(val_ds, f"ID_{cfg.in_dataset}", True)
+        if cfg.eval_accuracy:
+            if cfg.score == "maha":
+                warnings.warn("--eval_accuracy is ignored with --score maha "
+                              "(no prompt features to classify against)")
+            else:  # odin/parity: accuracy from a separate (cached) feature
+                   # pass — scores stay pure device output
+                feats, labels = _id_features_cached(step, dev_params,
+                                                    val_ds, cfg, log,
+                                                    telemetry)
+                _log_id_accuracy(cfg, feats, labels, text_host(), log)
 
     auroc_list: List[float] = []
     aupr_list: List[float] = []
@@ -337,7 +700,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
     for out_dataset in out_datasets:
         log.debug(f"Evaluting OOD dataset {out_dataset}")  # sic (reference)
         ood_ds = set_ood_loader(out_dataset, cfg.root_dir)
-        out_score = scores_for(ood_ds, out_dataset)
+        out_score = scores_for(ood_ds, out_dataset, False)
         from scipy import stats
         log.debug(f"in scores: {stats.describe(in_score)}")
         log.debug(f"out scores: {stats.describe(out_score)}")

@@ -19,7 +19,7 @@ CUDA kernel lives in :mod:`mcm_tpu_torch.ops.mcm_score`.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -154,3 +154,17 @@ def compute_scores(image_feats: torch.Tensor, text_feats: torch.Tensor,
     """
     logits = similarity_logits(image_feats, text_feats)
     return _scores_from_logits(logits, float(T))[score]
+
+
+def compute_all_scores(image_feats: torch.Tensor, text_feats: torch.Tensor,
+                       T: float = 1.0) -> Dict[str, torch.Tensor]:
+    """All scores at once (one encoder pass amortized over score variants)."""
+    logits = similarity_logits(image_feats, text_feats)
+    return _scores_from_logits(logits, float(T))
+
+
+def zero_shot_predictions(image_feats: torch.Tensor, text_feats: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(argmax class, max cosine sim) — zero-shot classification on the side."""
+    logits = similarity_logits(image_feats, text_feats)
+    return torch.argmax(logits, dim=-1), torch.amax(logits, dim=-1)

@@ -71,14 +71,3 @@ def test_encode_text_matches_jax(inputs):
                            batch_size=4).numpy()
     np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-5)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
-
-
-@pytest.mark.parametrize("score", ["odin", "maha"])
-def test_unported_scores_raise(score):
-    if score == "odin":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            EvalStep(TCFG, score=score, device="cpu")
-    else:
-        step = EvalStep(TCFG, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            step.maha(None, None, None)

@@ -632,3 +632,121 @@ def test_packed_bsd_is_bit_identical_to_split(cuda, dtype, s):
     split = attention.bsd_attention(
         *(t.contiguous() for t in qkv.split(768, dim=-1)), 12)
     assert torch.equal(got, split)
+
+
+# -- Mahalanobis and ODIN on the card ------------------------------------------
+# maha: the card's IEEE fp32 products against the CPU's, at the tolerance the
+# JAX package holds its score to (rtol 1e-4 / atol 1e-4, tests/test_scores.py);
+# with TF32 switched on globally the score still matches the CPU to 2e-5 of
+# its largest value, which a TF32 product (10-bit mantissa) would miss.
+
+def _maha_inputs(seed=0, b=128, c=10, d=512):
+    rng = np.random.default_rng(seed)
+    offset = rng.standard_normal(d) * 8 / np.sqrt(d)
+    feats = (offset + 0.3 * rng.standard_normal((b, d))).astype(np.float32)
+    mu = (offset + 0.3 * rng.standard_normal((c, d))).astype(np.float32)
+    a = rng.standard_normal((d, d)).astype(np.float32)
+    prec = (a @ a.T / d + np.eye(d)).astype(np.float32)
+    return feats, mu, prec
+
+
+def _tiny_clip(width=128, heads=2):
+    from mcm_tpu_torch.config import CLIPConfig, TextConfig, VisionConfig
+    from mcm_tpu_torch.models.init import init_clip
+    cfg = CLIPConfig(
+        name="tiny",
+        vision=VisionConfig(image_size=32, patch_size=8, width=width,
+                            layers=2, heads=heads, projection_dim=64),
+        text=TextConfig(vocab_size=128, context_length=16, width=64,
+                        layers=2, heads=4, projection_dim=64))
+    return cfg, init_clip(3, cfg)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_eval_step_maha_on_the_card_matches_cpu(cuda, normalize):
+    from mcm_tpu_torch.parallel import EvalStep
+    cfg, _ = _tiny_clip()
+    feats, mu, prec = _maha_inputs()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        step = EvalStep(cfg, device=dev)
+        out[dev] = step.maha(step.put_replicated(feats),
+                             step.put_replicated(mu),
+                             step.put_replicated(prec),
+                             normalize=normalize).cpu().numpy()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def test_mahalanobis_on_the_card_is_ieee_under_global_tf32(cuda):
+    from mcm_tpu_torch.scores.mahalanobis import mahalanobis_score
+    feats, mu, prec = _maha_inputs(seed=1)
+    want = mahalanobis_score(*map(torch.from_numpy, (feats, mu, prec))).numpy()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = mahalanobis_score(*(torch.from_numpy(a).to(cuda)
+                                  for a in (feats, mu, prec))).cpu().numpy()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-5 * np.abs(want).max())
+
+
+def _odin_inputs(cuda, seed=5):
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.integers(0, 256, size=(8, 32, 32, 3),
+                                           dtype=np.uint8)).to(cuda)
+    text = rng.standard_normal((20, 64)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    return images, torch.from_numpy(text).to(cuda)
+
+
+def test_odin_zero_noise_equals_mcm_on_the_card(cuda):
+    """ε = 0 on the card: the same MCM kernel on the same fp32 math-path
+    features (rtol 1e-5, atol 1e-6, as on the CPU)."""
+    from mcm_tpu_torch.parallel import EvalStep
+    from mcm_tpu_torch.parallel.eval_step import _odin_safe
+    cfg, params = _tiny_clip()
+    images, text = _odin_inputs(cuda)
+    odin = EvalStep(cfg, score="odin", device=cuda, noise_magnitude=0.0)
+    model = odin.put_params(params)
+    mcm = EvalStep(cfg, score="MCM", precision=_odin_safe(Precision.fast()),
+                   device=cuda)
+    before = mcm_score.mcm_score.launches
+    got = odin.score(model, images, text)
+    want = mcm.score(model, images, text)
+    torch.cuda.synchronize()
+    assert mcm_score.mcm_score.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    moved = EvalStep(cfg, score="odin", device=cuda, noise_magnitude=0.01)
+    s = moved.score(model, images, text)
+    assert bool(torch.isfinite(s).all()) and not torch.allclose(s, want)
+
+
+def test_odin_gradient_pass_launches_no_kernel(cuda):
+    """Asked for the bsd attention and the fused MLP, the ODIN step still
+    runs its gradient pass and its final encode on the math paths: the only
+    launch is the MCM score's, and with ``impl="torch"`` none at all."""
+    import dataclasses
+
+    from mcm_tpu_torch.parallel import EvalStep
+    cfg, params = _tiny_clip(width=128, heads=2)
+    images, text = _odin_inputs(cuda, seed=6)
+    asked = dataclasses.replace(Precision.fast(), attn_impl="pallas_bsd",
+                                mlp_impl="pallas")
+    step = EvalStep(cfg, score="odin", precision=asked, device=cuda,
+                    noise_magnitude=0.002)
+    model = step.put_params(params)
+    counters = [attention.bsd_attention, attention.flash_attention,
+                attention.pallas_attention, attention.mh_attention,
+                attention.batched_attention, mlp.fused_mlp,
+                mcm_score.mcm_score]
+    before = [fn.launches for fn in counters]
+    plain = step.score(model, images, text, impl="torch")
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == before
+    fused = step.score(model, images, text)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == before[:-1] + [before[-1] + 1]
+    torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-6)

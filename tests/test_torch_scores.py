@@ -87,8 +87,8 @@ def test_l2_normalize_parity(rng):
 
 def test_fused_mcm_scores_dispatch(rng):
     """CPU tensors: auto takes the torch path; "cuda" takes the kernel's
-    plain version; JAX's "pallas" / "xla" name the same two paths; unknown
-    names raise."""
+    plain version; JAX's "pallas" / "xla" name the same two paths; an
+    unknown score raises."""
     img, txt = (torch.from_numpy(a) for a in _feats(rng, 8, 20, 16))
     before = mcm_score.mcm_score.launches
     auto = mcm_score.fused_mcm_scores(img, txt, "MCM", 1.0)
@@ -121,12 +121,24 @@ def test_jax_path_names_route_as_the_port_names(rng, name, same_as, score):
 
 
 @pytest.mark.parametrize("name", ["Pallas", "triton", "auto", ""])
-def test_unknown_path_name_raises(rng, name):
-    """JAX sends any other name to XLA; the port raises (ROADMAP.md
-    Queue 3, I1)."""
-    img, txt = (torch.from_numpy(a) for a in _feats(rng, 4, 10, 8))
-    with pytest.raises(ValueError, match="unknown impl"):
-        mcm_score.fused_mcm_scores(img, txt, "MCM", 1.0, impl=name)
+def test_unknown_path_name_takes_the_torch_path(rng, name):
+    """Any other path name takes the torch score path, as JAX sends it to
+    XLA (``mcm_tpu/ops/mcm_score.py:140-142``): the port's result equals
+    JAX's ``fused_mcm_scores(..., impl=name)`` at atol 1e-6 of the largest
+    score."""
+    from mcm_tpu.ops.mcm_score import fused_mcm_scores as jfused
+    img, txt = _feats(rng, 4, 10, 8)
+    want = np.asarray(jfused(jnp.asarray(img), jnp.asarray(txt), "MCM", 1.0,
+                             impl=name))
+    got = mcm_score.fused_mcm_scores(torch.from_numpy(img),
+                                     torch.from_numpy(txt), "MCM", 1.0,
+                                     impl=name)
+    torch.testing.assert_close(
+        got, clip_scores.compute_scores(torch.from_numpy(img),
+                                        torch.from_numpy(txt), "MCM", 1.0),
+        rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("score", SCORES)
