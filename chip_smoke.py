@@ -51,6 +51,27 @@
    ``torch.profiler`` trace naming the bsd kernel), then the same command
    with ``--resume``: no launch, no parameter upload (peak memory below
    the model's size) and the same CSV.
+   Then the vit-Linear / MSP path: writes the port's synthetic
+   ``ViTForImageClassification`` state dict at google/vit-base-patch16-224's
+   size (768 wide, 12 layers, 1000 labels; seed 0) as
+   ``<ckpt>/vit-base-patch16-224/pytorch_model.bin`` and runs
+   ``mcm_tpu_torch.cli.eval_msp`` at ``-b 128`` on the same tree, which
+   converts it: 12 bsd launches per image batch and no MCM launch, the
+   CSV's three rows; one batch's logits through bsd held against the math
+   path; then ``eval_ood --model vit-Linear --score odin`` on two batches,
+   which launches no kernel at all, with ODIN's ms and peak memory per
+   batch.  Then serving: the port's ``OODDetector`` on the converted CLIP
+   weights with the 1000 ImageNet class names and buckets 1/8/64, warmed,
+   behind ``OODServer`` on a free local port, answers 32 concurrent
+   single-image requests (coalesced by the ``MicroBatcher``), one
+   100-image request, one ``?classify=1`` request, ``/healthz`` and
+   ``/metrics``: every score within the bucket tolerance of the offline
+   ``EvalStep.score``, every class equal to the offline argmax, bsd and MCM
+   launches equal to the batches dispatched; a Mahalanobis detector (the
+   maha run's templates) classifies more images than its largest bucket
+   with ``score_images``'s scores, and ``close()`` answers what the batcher
+   holds.  Prints p50 / p99 single-request latency and images/s, each with
+   the card's name and power limit.
 4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
    turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
@@ -64,9 +85,9 @@
    own shapes (B = 512) with a shorter chain: no row may fail, and every
    kernel they reach must be launched.
 6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line (its
-   ``launches``: bsd and MCM summed over the slice phase's CLI runs, the
-   knob kernels over their bench runs, the tools' kernels over their
-   tool's run), the card line again and, last,
+   ``launches``: bsd and MCM summed over the slice phase's CLI and serving
+   runs, the knob kernels over their bench runs, the tools' kernels over
+   their tool's run), the card line again and, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without a card.  Imports nothing of JAX
@@ -120,6 +141,9 @@ SCORE_REL_TOL = 1e-2
 # ODIN at ε = 0 against MCM at the same (fp32, math-path) precision: the
 # same kernels on the same features, so equal to fp32 noise
 ODIN_ZERO_REL_TOL = 1e-5
+# serving: the JAX package's bucket tolerance (tests/test_serve.py), a row
+# scored in a batch of another size sums in another order
+SERVE_RTOL, SERVE_ATOL = 5e-3, 5e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -592,12 +616,14 @@ def _all_counters() -> dict:
                 bsd_attention_packed=qkv_probe.bsd_fused)
 
 
-def cli_run(work: str, argv) -> dict:
-    """One in-process run of the eval CLI from ``work`` on the card, with
-    every launch count set to 0 just before it and read just after."""
+def cli_run(work: str, argv, cli_main=None) -> dict:
+    """One in-process run of a CLI (default: the eval CLI) from ``work`` on
+    the card, with every launch count set to 0 just before it and read
+    just after."""
     import warnings
 
-    from mcm_tpu_torch.cli.eval_ood import main as cli_main
+    if cli_main is None:
+        from mcm_tpu_torch.cli.eval_ood import main as cli_main
     counters = _all_counters()
     cwd = os.getcwd()
     os.chdir(work)
@@ -711,7 +737,8 @@ def slice_phase(work: str) -> dict:
     emit(out)
     path = {"bsd_attention": launches["bsd_attention"],
             "mcm_score": launches["mcm_score"]}
-    for fn in (maha_run, odin_run, accuracy_resume_runs):
+    for fn in (maha_run, odin_run, accuracy_resume_runs, vit_runs,
+               serve_run):
         for k, v in fn(work, data, ckpt).items():
             path[k] += v
     return path
@@ -913,6 +940,372 @@ def accuracy_resume_runs(work: str, data: str, ckpt: str) -> dict:
           "model_bytes_bf16": model_bytes, "same_csv": True})
     return {"bsd_attention": run["launches"]["bsd_attention"],
             "mcm_score": run["launches"]["mcm_score"]}
+
+
+def _write_odin_tree(root: str, seed: int = 2) -> None:
+    """ImageNet/val and dtd with one ``-b 128`` batch each (two batches)."""
+    rng = np.random.default_rng(seed)
+    _write_images(os.path.join(root, "ImageNet", "val"),
+                  [f"n{c:08d}" for c in range(8)], BATCH, rng)
+    _write_images(os.path.join(root, "ImageNet_OOD_dataset", "dtd", "images"),
+                  ["n00000000", "n00000001"], BATCH, rng)
+
+
+def vit_runs(work: str, data: str, ckpt: str) -> dict:
+    """The vit-Linear / MSP path at google/vit-base-patch16-224's size on
+    weights converted from a synthetic HF snapshot: ``eval_msp`` at ``-b
+    128`` (12 bsd launches per image batch, no MCM launch; the CSV's
+    three rows), one batch's logits held against the math path, then
+    ``eval_ood --model vit-Linear --score odin`` on two batches (no kernel
+    launch at all) and ODIN's ms per batch and peak memory."""
+    from mcm_tpu_torch.cli.eval_msp import main as msp_main
+    from mcm_tpu_torch.config import supervised_vit_config
+    from mcm_tpu_torch.models.hf_synth import hf_vit_key_shapes, write_hf_vit_snapshot
+
+    vit_cfg = supervised_vit_config()
+    t = time.perf_counter()
+    snap = write_hf_vit_snapshot(ckpt, vit_cfg, seed=0)
+    snapshot = {"snapshot": snap, "snapshot_bytes": os.path.getsize(snap),
+                "snapshot_params": sum(int(np.prod(s)) for s in
+                                       hf_vit_key_shapes(vit_cfg).values()),
+                "snapshot_write_s": time.perf_counter() - t}
+    run = cli_run(work, ["--in_dataset", "ImageNet", "--root-dir", data,
+                         "--out_datasets", *OOD_SETS, "-b", str(BATCH),
+                         "--ckpt_dir", ckpt, "--num_workers", "8",
+                         "--device", "cuda", "--name", "chip_smoke_msp"],
+                  cli_main=msp_main)
+    n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
+    _check_only(run["launches"], {"bsd_attention": vit_cfg.layers * n_batches},
+                f"eval_msp run over {n_batches} image batches")
+    log_dir = os.path.join(work, run["results"])
+    with open(os.path.join(log_dir, "chip_smoke_msp.csv")) as f:
+        csv = f.read().strip().splitlines()
+    check(csv[0] == ",FPR95,AUROC,AUPR"
+          and [r.split(",")[0] for r in csv[1:]] == [*OOD_SETS, "AVG"]
+          and all(len(r.split(",")) == 4 for r in csv[1:]),
+          f"eval_msp CSV: {csv}")
+    log = _read_log(log_dir)
+    conv = re.search(r"weights resolved in ([0-9.]+)s from (.*)$", log, re.M)
+    check(conv is not None and "pytorch_model.bin" in conv.group(2),
+          f"eval_msp did not convert the snapshot: "
+          f"{conv.group(0) if conv else None}")
+    out = {"phase": "vit_msp", "model": "supervised ViT-B/16 (12 layers, "
+           "width 768, 1000 labels)", "weights": "converted from a synthetic "
+           "HF ViTForImageClassification snapshot (seed 0)", **snapshot,
+           "conversion_s": float(conv.group(1)), "precision": "fast",
+           "batch": BATCH, "image_batches": n_batches,
+           "launches": run["launches"], "cli_wall_s": run["cli_wall_s"],
+           "images": N_ID + N_OOD * len(OOD_SETS),
+           "loop_images_per_s": _loop_rate(log),
+           "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+           "csv": csv}
+    out.update(vit_batch_check(data, ckpt))
+    emit(out)
+
+    odin_data = os.path.join(work, "datasets_vit_odin")
+    _write_odin_tree(odin_data)
+    odin = cli_run(work, ["--root-dir", odin_data, "--model", "vit-Linear",
+                          "--score", "odin", "-b", str(BATCH),
+                          "--in_dataset", "ImageNet", "--out_datasets", "dtd",
+                          "--ckpt_dir", ckpt, "--num_workers", "8",
+                          "--device", "cuda", "--name", "chip_smoke_vit_odin"])
+    _check_only(odin["launches"], {}, "vit-Linear ODIN run over 2 batches")
+    odin_dir = os.path.join(work, "results", "ImageNet", "odin",
+                            "vit-Linear_ViT-B/16_T_1_ID_chip_smoke_vit_odin")
+    _check_scores(odin_dir, {"ID_ImageNet": BATCH, "dtd": BATCH})
+    emit({"phase": "vit_odin", "batch": BATCH, "image_batches": 2,
+          "noise_magnitude": 0.0014, "launches": odin["launches"],
+          "cli_wall_s": odin["cli_wall_s"],
+          "max_memory_allocated_bytes": odin["max_memory_allocated_bytes"],
+          **vit_odin_batch(odin_data, ckpt)})
+    return {"bsd_attention": run["launches"]["bsd_attention"]}
+
+
+def _vit_step(data: str, ckpt: str, **over) -> tuple:
+    """The model and step the CLI builds for vit-Linear, and one ID batch
+    on the card."""
+    from mcm_tpu_torch.data import DataPipeline, set_val_loader
+    from mcm_tpu_torch.runner import RunConfig, build_model_and_step
+
+    cfg = RunConfig(in_dataset="ImageNet", root_dir=data, batch_size=BATCH,
+                    model="vit-Linear", ckpt_dir=ckpt, device="cuda", **over)
+    params, _, step = build_model_and_step(cfg)
+    batch = next(iter(DataPipeline(set_val_loader("ImageNet", data), BATCH,
+                                   num_workers=8)))
+    return params, step, step.put_batch(batch.images)
+
+
+def vit_batch_check(data: str, ckpt: str) -> dict:
+    """One ID batch's logits through the bsd kernel and through the math
+    path (attn_impl="xla") on the same card and weights."""
+    import dataclasses
+
+    from mcm_tpu_torch.config import Precision
+    from mcm_tpu_torch.parallel import VitLinearStep
+    from mcm_tpu_torch.scores.msp import msp_scores
+
+    params, step, images = _vit_step(data, ckpt)
+    math_step = VitLinearStep(step.cfg, precision=dataclasses.replace(
+        Precision.fast(), attn_impl="xla"), device="cuda")
+    l_k = step.features(params, images)
+    l_m = math_step.features(params, images)
+    # the bf16 bound of the repo (test_bf16_close_to_fp32): cosine > 0.995
+    # per row.  Both paths round the logits to bf16 (as JAX's does), so
+    # their difference is reported in bf16 ulps of the largest |logit|
+    cos = float(torch.nn.functional.cosine_similarity(l_k, l_m, dim=-1).min())
+    check(cos > FEAT_COS_MIN and bool(torch.isfinite(l_k).all()),
+          f"vit logits, kernel vs math path: min cosine {cos} <= "
+          f"{FEAT_COS_MIN}")
+    delta = float((l_k - l_m).abs().max())
+    scale = float(l_m.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    s_k, s_m = msp_scores(l_k), msp_scores(l_m)
+    return {"math_path_min_logit_cosine": cos,
+            "math_path_max_logit_delta": delta,
+            "math_path_max_abs_logit": scale,
+            "math_path_max_logit_delta_bf16_ulps": delta / ulp,
+            "math_path_max_msp_delta": float((s_k - s_m).abs().max()),
+            "math_path_max_abs_msp": float(s_m.abs().max()),
+            "batch_ms": cuda_ms(lambda: step.score(params, images), iters=5,
+                                warmup=1),
+            "profile_kernel_path": profile_batches(
+                lambda: step.score(params, images), n=2)}
+
+
+def vit_odin_batch(data: str, ckpt: str) -> dict:
+    """ODIN of the vit-Linear step on one batch: no kernel launch, its ms
+    per batch (CUDA events) and its peak memory."""
+    import gc
+
+    params, step, images = _vit_step(data, ckpt, score="odin")
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s = step.score(params, images)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _check_only({n: fn.launches for n, fn in counters.items()}, {},
+                "vit-Linear ODIN on one batch")
+    check(bool(torch.isfinite(s).all()), "vit ODIN scores not finite")
+    return {"odin_batch_ms": cuda_ms(lambda: step.score(params, images),
+                                     iters=3, warmup=1),
+            "odin_batch_allocated_before_bytes": base,
+            "odin_batch_max_memory_allocated_bytes": peak}
+
+
+# -- 3b. serving -----------------------------------------------------------------
+
+SERVE_BUCKETS = (1, 8, 64)
+N_SINGLE, N_BULK, N_CLASSIFY = 32, 100, 10
+
+
+def _http(port: int, method: str, path: str, body=None,
+          ctype: str = "image/jpeg") -> tuple:
+    """One request on its own connection; (status, body, seconds)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    t = time.perf_counter()
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": ctype} if body else {})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), time.perf_counter() - t
+    finally:
+        conn.close()
+
+
+def _profile_round(fn) -> dict:
+    """``fn`` once more under torch.profiler: the round's wall, the device
+    time of its kernels and copies, and their share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = fn()
+    device_ms = sum((getattr(e, "self_device_time_total", 0) or 0) / 1e3
+                    for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "device_busy_share": device_ms / (wall * 1e3)}
+
+
+def serve_run(work: str, data: str, ckpt: str) -> dict:
+    """The serving entry point on full CLIP ViT-B/16 (the converted
+    weights, 1000 ImageNet class names, buckets 1/8/64): warmup, then the
+    HTTP server answers 32 concurrent single images (coalesced by the
+    MicroBatcher), one 100-image request (two chunks), one ``?classify=1``
+    request, ``/healthz`` and ``/metrics``, each launch count set to 0
+    just before and read just after; scores and classes are held against
+    the offline step; a Mahalanobis detector classifies more images than
+    its largest bucket; ``close()`` answers what is in flight."""
+    import base64
+    import glob
+    import warnings
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mcm_tpu_torch.data.labels import get_test_labels
+    from mcm_tpu_torch.serve import OODDetector
+    from mcm_tpu_torch.serve_http import OODServer, decode_image_bytes
+
+    t = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        # allow_random_weights only for the hash tokenizer (no vocab here)
+        det = OODDetector(class_names=get_test_labels("ImageNet"),
+                          ckpt_dir=ckpt, allow_random_weights=True,
+                          batch_sizes=SERVE_BUCKETS, device="cuda")
+    check(not [w for w in caught if "RANDOM WEIGHTS" in str(w.message)],
+          "the detector ran random weights")
+    build_s = time.perf_counter() - t
+    logs = []
+    t = time.perf_counter()
+    det.warmup(include_features=True, log=logs.append)
+    warmup_s = time.perf_counter() - t
+    check(logs == [f"warmed bucket {b}" for b in SERVE_BUCKETS],
+          f"warmup log {logs}")
+
+    paths = sorted(glob.glob(os.path.join(data, "ImageNet", "val", "*",
+                                          "*.jpg")))
+    n = N_SINGLE + N_BULK + N_CLASSIFY
+    check(len(paths) >= n, f"{len(paths)} ID images for {n} to serve")
+    blobs = []
+    for p in paths[:n]:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    # where a request's time can go: PIL decode on the host (one thread),
+    # and the card's time for one scoring batch of each bucket
+    t = time.perf_counter()
+    images = np.stack([decode_image_bytes(b) for b in blobs])
+    decode_ms = (time.perf_counter() - t) * 1e3 / n
+    bucket_ms = {}
+    for b in SERVE_BUCKETS:
+        zero = det.step.put_batch(np.zeros((b, 224, 224, 3), np.uint8))
+        bucket_ms[b] = cuda_ms(lambda: det._score_device(zero), iters=10)
+    singles, bulk, classify = (slice(0, N_SINGLE),
+                               slice(N_SINGLE, N_SINGLE + N_BULK),
+                               slice(N_SINGLE + N_BULK, n))
+
+    def b64_json(part, **extra):
+        return json.dumps({"images_b64": [base64.b64encode(b).decode()
+                                          for b in blobs[part]], **extra})
+
+    def drive(port: int) -> tuple:
+        """The 34 requests at once, from client threads of this process;
+        returns the replies and the wall seconds."""
+        t = time.perf_counter()
+        with ThreadPoolExecutor(N_SINGLE + 2) as pool:
+            single_futs = [pool.submit(_http, port, "POST", "/v1/score", b)
+                           for b in blobs[singles]]
+            bulk_fut = pool.submit(_http, port, "POST", "/v1/score",
+                                   b64_json(bulk), "application/json")
+            cls_fut = pool.submit(_http, port, "POST",
+                                  "/v1/score?classify=1", b64_json(classify),
+                                  "application/json")
+            replies = ([f.result() for f in single_futs]
+                       + [bulk_fut.result(), cls_fut.result()])
+        torch.cuda.synchronize()
+        return replies, time.perf_counter() - t
+
+    counters = _all_counters()
+    server = OODServer(det, host="127.0.0.1", port=0, max_wait_ms=5.0)
+    server.start()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        replies, wall = drive(server.port)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        health = _http(server.port, "GET", "/healthz")
+        metrics = _http(server.port, "GET", "/metrics")
+        n_batches, n_images = server.batcher.n_batches, server.batcher.n_images
+        check(all(r[0] == 200 for r in replies + [health, metrics]),
+              f"serving statuses {[r[:2] for r in replies + [health, metrics]]}")
+        check(json.loads(health[1])["status"] == "ok", f"healthz {health[1]}")
+        text = metrics[1].decode()
+        check(f"mcm_device_images_total {N_SINGLE + N_BULK}" in text
+              and f'status="200"}} {N_SINGLE + 2}' in text,
+              f"/metrics does not count the requests:\n{text}")
+        check(n_images == N_SINGLE + N_BULK, f"batcher images {n_images}")
+        classify_chunks = -(-N_CLASSIFY // SERVE_BUCKETS[-1])
+        layers = det.step.cfg.vision.layers
+        _check_only(launches, {"bsd_attention": layers * (n_batches
+                                                          + classify_chunks),
+                               "mcm_score": n_batches},
+                    f"serving: {n_batches} batcher batches and "
+                    f"{classify_chunks} classify batch")
+
+        # offline: the step on all the images at once, and the classify
+        # images padded to their bucket exactly as classify_images pads
+        served = np.array([json.loads(r[1])["scores"][0]
+                           for r in replies[:N_SINGLE]]
+                          + json.loads(replies[N_SINGLE][1])["scores"]
+                          + json.loads(replies[-1][1])["scores"], np.float32)
+        offline = det.step.score(det.params, det.step.put_batch(images),
+                                 det.text_feats).cpu().numpy()
+        err = np.abs(served - offline)
+        check(bool(np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(offline))),
+              f"served scores vs offline: max delta {err.max()}")
+        feats = det.step.features(det.params, det.step.put_batch(
+            det._pad_to_bucket(images[classify]))).cpu().numpy()[:N_CLASSIFY]
+        feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+        want_cls = np.argmax(feats @ det._text_host.T, axis=-1)
+        got_cls = json.loads(replies[-1][1])["class_index"]
+        check(got_cls == want_cls.tolist(),
+              f"classes {got_cls} vs offline argmax {want_cls.tolist()}")
+        server_q = {q: float(v) for q, v in re.findall(
+            r'mcm_score_latency_seconds\{quantile="([0-9.]+)"\} ([0-9.]+)',
+            text)}
+        profiled = _profile_round(lambda: drive(server.port))
+
+        # close() answers what the batcher already accepted
+        futs = [server.batcher.submit(im) for im in images[:16]]
+    finally:
+        server.close()
+    check(all(np.isfinite(f.result(timeout=60)) for f in futs),
+          "close() left requests unanswered")
+
+    # Mahalanobis (the maha run's templates, fingerprinted with these
+    # weights): classify more images than the largest bucket
+    det.load_maha_templates(os.path.join(
+        work, "img_templates",
+        "templates_CLIP_ViT-B-16_ImageNet10_250_False.npz"))
+    maha_imgs = images[:N_BULK]
+    maha = det.score_images(maha_imgs)
+    _, maha_cls = det.classify_images(maha_imgs)
+    check(np.allclose(maha_cls, maha, rtol=1e-4, atol=1e-4)
+          and bool(np.isfinite(maha).all()),
+          f"maha classify vs score_images: max delta "
+          f"{np.abs(maha_cls - maha).max()}")
+
+    lat = np.sort([r[2] for r in replies[:N_SINGLE]])
+    card = card_line()
+    p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+    print(f"serving p50 single-image latency {p50 * 1e3:.3f} ms ({card})")
+    print(f"serving p99 single-image latency {p99 * 1e3:.3f} ms ({card})")
+    print(f"serving {n / wall:.1f} images/s over {len(replies)} concurrent "
+          f"requests ({card})", flush=True)
+    emit({"phase": "serve", "model": "ViT-B/16", "classes": 1000,
+          "buckets": list(SERVE_BUCKETS), "build_s": build_s,
+          "warmup_s": warmup_s, "requests": len(replies), "images": n,
+          "host_decode_ms_per_image": decode_ms,
+          "device_score_ms_by_bucket": bucket_ms,
+          "server_side_latency_s_by_quantile": server_q,
+          "profiled_round": profiled,
+          "batcher_batches": n_batches, "batcher_images": n_images,
+          "coalescing_ratio": n_images / max(1, n_batches),
+          "launches": launches, "wall_s": wall, "images_per_s": n / wall,
+          "single_latency_p50_ms": p50 * 1e3,
+          "single_latency_p99_ms": p99 * 1e3,
+          "bulk_latency_ms": replies[N_SINGLE][2] * 1e3,
+          "classify_latency_ms": replies[-1][2] * 1e3,
+          "max_served_vs_offline_delta": float(err.max()),
+          "maha_classified": len(maha_imgs),
+          "maha_max_classify_vs_score_delta": float(
+              np.abs(maha_cls - maha).max())})
+    return {"bsd_attention": launches["bsd_attention"],
+            "mcm_score": launches["mcm_score"]}
 
 
 def _one_batch(data: str, ckpt: str, **over) -> tuple:

@@ -18,10 +18,12 @@ but derived from the checkpoint.  Every score runs, ``maha`` (templates
 from the ID train split under ``--template_dir``, estimated with
 ``--generate``, or read from there) and ``odin`` included, as do
 ``--eval_accuracy``, ``--resume`` and ``--trace_dir`` (a ``torch.profiler``
-Chrome trace of the ID pass).  Options whose code is not ported yet
-(``--model vit-Linear|CLIP-Linear``, ``--fast_decode``,
-``--model_parallel > 1``, ``--n_devices > 1``) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Chrome trace of the ID pass).  ``--model vit-Linear`` scores the
+supervised ViT's classifier logits (weights under ``--ckpt_dir``, a probe
+head through ``--finetune_ckpt``).  Options whose code is not ported yet
+(``--model CLIP-Linear``, ``--fast_decode``, ``--model_parallel > 1``,
+``--n_devices > 1``) raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 """
 
 import argparse
@@ -121,7 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fast_decode", action="store_true",
                         help="DCT-prescaled JPEG decode (throughput mode)")
     parser.add_argument("--finetune_ckpt", default=None, type=str,
-                        help="fine-tuned .npz weights for --model CLIP-Linear")
+                        help="fine-tuned .npz weights for --model "
+                             "CLIP-Linear; a probe head {w, b} for "
+                             "--model vit-Linear")
     parser.add_argument("--out_datasets", default=None, type=str, nargs="+",
                         help="override the default OOD set list")
     return parser

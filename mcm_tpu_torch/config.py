@@ -200,3 +200,40 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' (CLI: --device cpu) to run on the CPU")
     return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class SupervisedViTConfig:
+    """Supervised ViT classifier (MSP baseline; the reference README's
+    google/vit-base-patch16-224 comparison path, ``detection_util.py:124-126``).
+
+    Construct via :func:`supervised_vit_config` on CLI paths — it applies
+    the ``MCM_TPU_TEST_TINY_VIT=1`` test-double override."""
+
+    image_size: int = 224
+    patch_size: int = 16
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    mlp_ratio: int = 4
+    num_classes: int = 1000
+    layer_norm_eps: float = 1e-12
+
+    @property
+    def seq_len(self) -> int:
+        return (self.image_size // self.patch_size) ** 2 + 1
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.heads
+
+
+def supervised_vit_config() -> SupervisedViTConfig:
+    """The CLI's ViT-base config, honoring the test-double override: with
+    ``MCM_TPU_TEST_TINY_VIT`` set (CLI-subprocess tests only) it is
+    2 layers, width 128, 4 heads, at the same 224²/16 patch grid."""
+    if os.environ.get("MCM_TPU_TEST_TINY_VIT"):
+        warnings.warn("MCM_TPU_TEST_TINY_VIT active: the supervised ViT "
+                      "resolves to a 2-layer/128-wide test double")
+        return SupervisedViTConfig(width=128, layers=2, heads=4)
+    return SupervisedViTConfig()

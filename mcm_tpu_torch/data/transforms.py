@@ -62,10 +62,15 @@ def center_crop(img: Image.Image, size: int) -> Image.Image:
 def load_image_uint8(path: str, size: int = 224) -> np.ndarray:
     """Decode + resize + crop one image file → uint8 [size, size, 3] HWC."""
     with Image.open(path) as img:
-        img = img.convert("RGB")
-        img = resize_shorter_side(img, size)
-        img = center_crop(img, size)
-        return np.asarray(img, dtype=np.uint8)
+        return preprocess_uint8(img, size)
+
+
+def preprocess_uint8(img: Image.Image, size: int = 224) -> np.ndarray:
+    """Same as :func:`load_image_uint8` for an already-open PIL image."""
+    img = img.convert("RGB")
+    img = resize_shorter_side(img, size)
+    img = center_crop(img, size)
+    return np.asarray(img, dtype=np.uint8)
 
 
 def norm_coeffs(mean: Tuple[float, ...],

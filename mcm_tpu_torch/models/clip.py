@@ -45,16 +45,20 @@ _COMPUTE_DTYPE_LEAVES = frozenset({
 
 
 class ParamTree(nn.Module):
-    """Nested parameters under the JAX tree's names (frozen: inference)."""
+    """Nested parameters under the JAX tree's names (frozen: inference).
+    Leaves named in ``compute_leaves`` are stored in ``dtype``, the rest in
+    fp32."""
 
     def __init__(self, tree: Dict[str, Any], device: torch.device,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype,
+                 compute_leaves: frozenset = _COMPUTE_DTYPE_LEAVES):
         super().__init__()
         for key, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(key, ParamTree(value, device, dtype))
+                self.add_module(key, ParamTree(value, device, dtype,
+                                               compute_leaves))
             else:
-                dt = dtype if key in _COMPUTE_DTYPE_LEAVES else torch.float32
+                dt = dtype if key in compute_leaves else torch.float32
                 t = torch.from_numpy(np.array(value, np.float32))
                 self.register_parameter(key, nn.Parameter(
                     t.to(device=device, dtype=dt), requires_grad=False))

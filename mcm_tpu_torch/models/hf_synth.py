@@ -6,16 +6,23 @@ value is a pure function of ``(key, seed)``.  They stand in for real
 ``openai/clip-vit-*`` weights where none can be fetched: the converter is
 held against the JAX package's on them, and ``chip_smoke.py`` writes one
 as an HF snapshot for the CLI to convert on a card host that has no JAX.
+
+The same holds for the supervised ViT of the MSP baseline: an HF
+``ViTForImageClassification`` state dict (``google/vit-base-patch16-224``'s
+keys and shapes at the full config) from the same value rule, and
+:func:`write_hf_vit_snapshot`, which saves it as the snapshot directory
+the vit-Linear path converts.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
 from typing import Dict, Tuple
 
 import numpy as np
 
-from mcm_tpu_torch.config import CLIPConfig
+from mcm_tpu_torch.config import CLIPConfig, SupervisedViTConfig
 
 
 def hf_clip_key_shapes(cfg: CLIPConfig) -> Dict[str, Tuple[int, ...]]:
@@ -142,3 +149,63 @@ def hf_to_openai_state_dict(hf_sd: Dict[str, np.ndarray],
                     hf_sd[f"{hp}.{hf_name}.weight"]
                 out[f"{op}.{oai_name}.bias"] = hf_sd[f"{hp}.{hf_name}.bias"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Supervised ViT (HF ViTForImageClassification)
+# ---------------------------------------------------------------------------
+
+def hf_vit_key_shapes(cfg: SupervisedViTConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every key of ``ViTForImageClassification(cfg).state_dict()`` (no
+    pooler, no mask token: the classification model's defaults) with its
+    shape."""
+    d, m, p = cfg.width, cfg.width * cfg.mlp_ratio, cfg.patch_size
+    shapes: Dict[str, Tuple[int, ...]] = {
+        "vit.embeddings.cls_token": (1, 1, d),
+        "vit.embeddings.position_embeddings": (1, cfg.seq_len, d),
+        "vit.embeddings.patch_embeddings.projection.weight": (d, 3, p, p),
+        "vit.embeddings.patch_embeddings.projection.bias": (d,),
+        "vit.layernorm.weight": (d,),
+        "vit.layernorm.bias": (d,),
+        "classifier.weight": (cfg.num_classes, d),
+        "classifier.bias": (cfg.num_classes,),
+    }
+    for i in range(cfg.layers):
+        pre = f"vit.encoder.layer.{i}"
+        for name, shape in (("attention.attention.query", (d, d)),
+                            ("attention.attention.key", (d, d)),
+                            ("attention.attention.value", (d, d)),
+                            ("attention.output.dense", (d, d)),
+                            ("intermediate.dense", (m, d)),
+                            ("output.dense", (d, m))):
+            shapes[f"{pre}.{name}.weight"] = shape
+            shapes[f"{pre}.{name}.bias"] = (shape[0],)
+        for ln in ("layernorm_before", "layernorm_after"):
+            shapes[f"{pre}.{ln}.weight"] = (d,)
+            shapes[f"{pre}.{ln}.bias"] = (d,)
+    return shapes
+
+
+def synth_hf_vit_state_dict(cfg: SupervisedViTConfig,
+                            seed: int = 0) -> Dict[str, np.ndarray]:
+    """A full, shape-exact HF ViT classifier state dict with deterministic
+    values (the CLIP dicts' value rule)."""
+    return {k: _value_for(k, s, seed)
+            for k, s in hf_vit_key_shapes(cfg).items()}
+
+
+def write_hf_vit_snapshot(ckpt_dir: str, cfg: SupervisedViTConfig,
+                          seed: int = 0) -> str:
+    """Save :func:`synth_hf_vit_state_dict` as the HF snapshot
+    ``<ckpt_dir>/vit-base-patch16-224/pytorch_model.bin`` that
+    :func:`~mcm_tpu_torch.models.vit.resolve_vit_params` converts; returns
+    the file's path."""
+    import torch
+
+    from mcm_tpu_torch.models.vit import VIT_SNAPSHOT
+    snap = os.path.join(ckpt_dir, VIT_SNAPSHOT)
+    os.makedirs(snap, exist_ok=True)
+    path = os.path.join(snap, "pytorch_model.bin")
+    torch.save({k: torch.from_numpy(np.asarray(v))
+                for k, v in synth_hf_vit_state_dict(cfg, seed).items()}, path)
+    return path

@@ -2,17 +2,20 @@
 
 Used for tests and smoke runs when no pretrained checkpoint is on disk.
 The generator calls and their order are those of the JAX package's
-``init_clip``, so one int seed gives bit-identical weights in both
-packages.  The result is the framework-free parameter tree (nested dicts,
-weights ``[in, out]``, layers stacked on a leading axis); hand it to
-:func:`mcm_tpu_torch.models.convert.from_jax_params` to get a model.
+``init_clip`` and ``init_supervised_vit``, so one int seed gives
+bit-identical weights in both packages.  The result is the framework-free
+parameter tree (nested dicts, weights ``[in, out]``, layers stacked on a
+leading axis); hand it to
+:func:`mcm_tpu_torch.models.convert.from_jax_params` (CLIP) or
+:func:`mcm_tpu_torch.models.vit.from_jax_vit_params` to get a model.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from mcm_tpu_torch.config import CLIPConfig, TextConfig, VisionConfig
+from mcm_tpu_torch.config import (CLIPConfig, SupervisedViTConfig, TextConfig,
+                                  VisionConfig)
 
 
 def _seed_of(key) -> np.random.SeedSequence:
@@ -108,4 +111,27 @@ def init_clip(key, cfg: CLIPConfig) -> dict:
         "vision": init_vision(kv, cfg.vision),
         "text": init_text(kt, cfg.text),
         "logit_scale": np.float32(4.6052),  # ln(100)
+    }
+
+
+def init_supervised_vit(key, cfg: SupervisedViTConfig) -> dict:
+    """Random init for the supervised ViT MSP-baseline classifier."""
+    rng = _rng_for(key)
+    patch_dim = cfg.patch_size * cfg.patch_size * 3
+    return {
+        "patch_embed": rng.standard_normal(
+            (patch_dim, cfg.width), dtype=np.float32) * cfg.width ** -0.5,
+        "patch_bias": np.zeros((cfg.width,), np.float32),
+        "class_emb": rng.standard_normal(
+            (cfg.width,), dtype=np.float32) * 0.02,
+        "pos_emb": rng.standard_normal(
+            (cfg.seq_len, cfg.width), dtype=np.float32) * 0.02,
+        "layers": _stacked_layers(rng, cfg.layers, cfg.width, cfg.mlp_ratio),
+        "final_ln": _ln(cfg.width),
+        "head": {
+            "w": rng.standard_normal(
+                (cfg.width, cfg.num_classes),
+                dtype=np.float32) * cfg.width ** -0.5,
+            "b": np.zeros((cfg.num_classes,), np.float32),
+        },
     }

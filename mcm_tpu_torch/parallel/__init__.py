@@ -1,1 +1,1 @@
-from mcm_tpu_torch.parallel.eval_step import EvalStep  # noqa: F401
+from mcm_tpu_torch.parallel.eval_step import EvalStep, VitLinearStep  # noqa: F401

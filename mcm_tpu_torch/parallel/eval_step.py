@@ -5,8 +5,10 @@ Everything the reference hot loop does on the device per batch
 which is hoisted out and cached): uint8 → float normalize, the ViT
 forward, and the fused L2-normalize → class matmul → score reduction.  The
 only host↔device traffic per batch is uint8 pixels in (through pinned
-memory, asynchronously) and one fp32 score per image out.  One device:
-multi-card data parallelism is ``ROADMAP.md`` Queue 1, item 9.
+memory, asynchronously) and one fp32 score per image out.
+:class:`VitLinearStep` is the same for the supervised ViT + linear head
+(``--model vit-Linear``).  One device: multi-card data parallelism is
+``ROADMAP.md`` Queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -17,13 +19,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mcm_tpu_torch.config import (CLIPConfig, Precision, apply_matmul_policy,
-                                  resolve_device)
-from mcm_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD, normalize_on_device
+from mcm_tpu_torch.config import (CLIPConfig, Precision, SupervisedViTConfig,
+                                  apply_matmul_policy, resolve_device)
+from mcm_tpu_torch.data.transforms import (CLIP_MEAN, CLIP_STD, IMAGENET_MEAN,
+                                           IMAGENET_STD, normalize_on_device)
 from mcm_tpu_torch.models import clip as tclip
+from mcm_tpu_torch.models import vit as tvit
 from mcm_tpu_torch.models.convert import from_jax_params
 from mcm_tpu_torch.ops.mcm_score import fused_mcm_scores
-from mcm_tpu_torch.scores.clip_scores import CLIP_SCORES, l2_normalize
+from mcm_tpu_torch.scores.clip_scores import (CLIP_SCORES, _scores_from_logits,
+                                              ieee_fp32_matmul, l2_normalize)
 from mcm_tpu_torch.scores.mahalanobis import mahalanobis_score
 from mcm_tpu_torch.scores.odin import clip_odin_logits_fn, odin_perturb
 
@@ -42,7 +47,26 @@ def _odin_safe(precision: Precision) -> Precision:
                                attn_impl="xla", mlp_impl="xla")
 
 
-class EvalStep:
+class _Placement:
+    """Host → device placement shared by the step classes (requires
+    ``self.device``)."""
+
+    def put_batch(self, images_u8: np.ndarray) -> torch.Tensor:
+        """uint8 [B, H, W, 3] host batch → device, through pinned memory
+        with a non-blocking copy.  ``pin_memory`` copies into a fresh
+        pinned buffer, so the caller may reuse ``images_u8`` at once, and
+        PyTorch's caching host allocator keeps that buffer until the copy
+        completes."""
+        t = torch.from_numpy(np.ascontiguousarray(images_u8))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def put_replicated(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+
+class EvalStep(_Placement):
     """Per-batch eval programs bound to one device.
 
     ``score(params, images_u8, text_feats)``   → [B] fp32 OOD scores
@@ -77,18 +101,6 @@ class EvalStep:
         stored in the activation dtype."""
         return from_jax_params(params, self.device,
                                self.precision.activation_dtype)
-
-    def put_batch(self, images_u8: np.ndarray) -> torch.Tensor:
-        """uint8 [B, H, W, 3] host batch → device, through pinned memory
-        with a non-blocking copy (the pinned buffer is kept alive by
-        PyTorch's caching host allocator until the copy completes)."""
-        t = torch.from_numpy(np.ascontiguousarray(images_u8))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
-    def put_replicated(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), device=self.device)
 
     # -- per-batch programs ----------------------------------------------------
 
@@ -169,3 +181,82 @@ class EvalStep:
             f = l2_normalize(f).float()
             outs.append(f[:f.shape[0] - pad] if pad else f)
         return torch.cat(outs, dim=0)
+
+
+class VitLinearStep(_Placement):
+    """Supervised ViT + linear head through the standard score family.
+
+    The reference's ``vit-Linear`` configuration
+    (``utils/detection_util.py:124-133``): image features = CLS token of
+    the last hidden state, logits = linear classifier over them, scored by
+    the same max-softmax / energy / … family from the logits (no MCM
+    kernel: it takes image and text features).  The same interface subset
+    as :class:`EvalStep` (``put_*``, ``score``, ``features``), so the
+    runner streams batches identically; ``features`` returns the clean
+    classifier *logits*, the substrate every score and the accuracy meter
+    derive from.  One device: ``model_parallel > 1`` raises, as in the
+    JAX package.
+    """
+
+    def __init__(self, cfg: SupervisedViTConfig, score: str = "MCM",
+                 T: float = 1.0, precision: Precision = Precision.fast(),
+                 device="cuda", noise_magnitude: float = 0.0014,
+                 model_parallel: int = 1):
+        if score not in CLIP_SCORES + ("odin",):
+            raise ValueError(f"unknown score {score!r}")
+        if model_parallel != 1:
+            raise ValueError("--model vit-Linear runs data-parallel only; "
+                             "use --model_parallel 1")
+        if score == "odin":
+            precision = _odin_safe(precision)
+        self.cfg = cfg
+        self.score_name = score
+        self.T = float(T)
+        self.noise_magnitude = float(noise_magnitude)
+        self.precision = precision
+        self.device = resolve_device(device)
+        apply_matmul_policy(precision)
+
+    def put_params(self, params) -> tvit.SupervisedViT:
+        """Host parameter tree → the model on this step's device, matrices
+        stored in the activation dtype."""
+        return tvit.from_jax_vit_params(params, self.device,
+                                        self.precision.activation_dtype)
+
+    def _normalize(self, images_u8: torch.Tensor) -> torch.Tensor:
+        return normalize_on_device(images_u8, IMAGENET_MEAN, IMAGENET_STD,
+                                   dtype=self.precision.activation_dtype)
+
+    @torch.inference_mode()
+    def features(self, params: tvit.SupervisedViT,
+                 images_u8: torch.Tensor) -> torch.Tensor:
+        """[B, num_classes] fp32 clean logits (ODIN perturbs scoring only)."""
+        return tvit.forward_logits(params, self.cfg, self._normalize(images_u8),
+                                   self.precision)
+
+    def score(self, params: tvit.SupervisedViT, images_u8: torch.Tensor,
+              text_feats=None) -> torch.Tensor:
+        """[B] fp32 scores from the logits.  ``score="odin"`` perturbs the
+        normalized pixels against the gradient of the pseudo-label NLL of
+        ``logits / T`` first (outside inference mode, IEEE fp32 products on
+        the math paths), then scores with max-softmax."""
+        if self.score_name != "odin":
+            with torch.inference_mode():
+                return _scores_from_logits(self.features(params, images_u8),
+                                           self.T)[self.score_name]
+        x = self._normalize(images_u8)
+
+        def logits_fn(xi):
+            return tvit.forward_logits(params, self.cfg, xi,
+                                       self.precision) / self.T
+
+        # Reference quirk kept: input_preprocessing scales the gradient
+        # sign by the CLIP std for EVERY model — the ``std=(0.26862954,
+        # ...)`` at ``detection_util.py:141-143`` is hardcoded even on the
+        # vit-Linear branch, whose pixels were normalized with 0.5.
+        with ieee_fp32_matmul():   # forward and backward: sign(grad)
+            x = odin_perturb(logits_fn, x, self.noise_magnitude,
+                             std=CLIP_STD)
+        with torch.inference_mode(), ieee_fp32_matmul():
+            logits = tvit.forward_logits(params, self.cfg, x, self.precision)
+            return _scores_from_logits(logits, self.T)["MCM"]

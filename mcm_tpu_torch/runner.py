@@ -17,9 +17,11 @@ plots → CSV, on one CUDA device:
 * Mahalanobis templates are cached as ``.npz`` (the reference uses
   ``.pt``, ``detection_util.py:175-176``; a reference pair is read too).
 
-This slice covers ``--model CLIP`` with every score (the five logit
-scores, ``maha`` and ``odin``).  The options of the JAX runner not ported
-yet raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+This covers ``--model CLIP`` with every score (the five logit scores,
+``maha`` and ``odin``) and ``--model vit-Linear`` (the supervised ViT +
+linear head, scored from its logits; ``maha`` refused).  The options of
+the JAX runner not ported yet raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ from mcm_tpu_torch.metrics import get_and_print_results, print_measures
 from mcm_tpu_torch.models.convert import (file_identity, resolve_clip_params,
                                           resolve_clip_weight_source)
 from mcm_tpu_torch.models.init import init_clip
-from mcm_tpu_torch.parallel import EvalStep
-from mcm_tpu_torch.scores.clip_scores import compute_scores_host, l2_normalize
+from mcm_tpu_torch.parallel import EvalStep, VitLinearStep
+from mcm_tpu_torch.scores.clip_scores import (_scores_from_logits_host,
+                                              compute_scores_host, l2_normalize)
 from mcm_tpu_torch.scores.mahalanobis import (estimate_mean_precision,
                                               load_pt_templates,
                                               reference_template_paths)
@@ -113,8 +116,6 @@ class RunConfig:
 def check_ported(cfg: RunConfig) -> None:
     """Raise for every option of the JAX runner this slice does not port."""
     todo = []
-    if cfg.model == "vit-Linear":
-        todo.append("--model vit-Linear: ROADMAP.md Queue 1, item 6")
     if cfg.model == "CLIP-Linear":
         todo.append("--model CLIP-Linear: ROADMAP.md Queue 1, item 8")
     if cfg.fast_decode:
@@ -125,7 +126,7 @@ def check_ported(cfg: RunConfig) -> None:
                     "item 9")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
-    if cfg.model != "CLIP":
+    if cfg.model not in ("CLIP", "vit-Linear"):
         raise ValueError(f"unknown --model {cfg.model!r}")
 
 
@@ -162,14 +163,61 @@ class _HashTokenizer:
                               context_length)
 
 
+def _build_vit_linear(cfg: RunConfig, log=None, defer_put: bool = False):
+    """Supervised ViT + linear head (reference ``vit-Linear``,
+    ``detection_util.py:124-133``): backbone from an HF
+    ``google/vit-base-patch16-224`` snapshot or its converted ``.npz``;
+    head = the checkpoint's own classifier, or a trained linear probe
+    ``{w, b}`` passed via ``--finetune_ckpt``.  No tokenizer."""
+    from mcm_tpu_torch.config import supervised_vit_config
+    from mcm_tpu_torch.models.init import init_supervised_vit
+    from mcm_tpu_torch.models.vit import (resolve_vit_params,
+                                          resolve_vit_weight_source)
+
+    if cfg.score == "maha":
+        raise ValueError("--score maha is CLIP-feature-based; "
+                         "not supported with --model vit-Linear")
+    vit_cfg = supervised_vit_config()
+    t0 = time.perf_counter()
+    params = resolve_vit_params(vit_cfg, cfg.ckpt_dir)
+    if log is not None and params is not None:
+        log.debug(f"weights resolved in {time.perf_counter() - t0:.2f}s from "
+                  f"{file_identity(resolve_vit_weight_source(cfg.ckpt_dir))}")
+    if params is None:
+        if not cfg.allow_random_weights:
+            raise FileNotFoundError(
+                "no supervised ViT weights for --model vit-Linear; put an "
+                "HF ViTForImageClassification snapshot (or converted .npz) "
+                "under --ckpt_dir, or pass --allow_random_weights")
+        warnings.warn("RANDOM WEIGHTS in use — scores are meaningless; "
+                      "this mode is for smoke/throughput tests only")
+        params = init_supervised_vit(0, vit_cfg)
+    if cfg.finetune_ckpt:
+        with np.load(cfg.finetune_ckpt) as head:
+            params["head"] = {"w": head["w"].astype(np.float32),
+                              "b": head["b"].astype(np.float32)}
+    n_cls = np.asarray(params["head"]["b"]).shape[0]
+    vit_cfg = dataclasses.replace(vit_cfg, num_classes=int(n_cls))
+    step = VitLinearStep(vit_cfg, score=cfg.score, T=cfg.T,
+                         precision=resolve_precision(cfg.precision),
+                         device=cfg.device,
+                         noise_magnitude=cfg.noise_magnitude,
+                         model_parallel=cfg.model_parallel)
+    return (params if defer_put else step.put_params(params)), None, step
+
+
 def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False):
-    """Resolve weights + tokenizer and build the eval step; returns the
-    model on the step's device, the tokenizer and the step.
+    """Resolve weights + tokenizer and build the eval step (``EvalStep``
+    for CLIP, ``VitLinearStep`` for ``--model vit-Linear``, which has no
+    tokenizer); returns the model on the step's device, the tokenizer and
+    the step.
 
     ``defer_put=True`` returns the HOST parameter tree instead (no device
     upload): :func:`run_eval` uploads it with ``step.put_params`` on first
     device use, so a fully cached ``--resume`` never touches the card."""
     check_ported(cfg)
+    if cfg.model == "vit-Linear":
+        return _build_vit_linear(cfg, log, defer_put)
     clip_cfg = CLIP_CONFIGS[cfg.clip_ckpt]()
     precision = resolve_precision(cfg.precision)
 
@@ -422,7 +470,14 @@ def maha_score_dataset(step: EvalStep, params, dataset, mu, prec,
 
 
 def _log_id_accuracy(cfg: RunConfig, feats, labels, text_feats, log) -> None:
-    """Log ID top-1/top-5 zero-shot accuracy from cached features."""
+    """Log ID top-1/top-5 accuracy from cached features (classifier logits
+    for vit-Linear; zero-shot prompt matching otherwise)."""
+    if cfg.model == "vit-Linear":
+        from mcm_tpu_torch.utils.meters import accuracy
+        top1, top5 = accuracy(feats, labels, topk=(1, 5))
+        log.debug(f"ID classifier accuracy: top1 {top1:.2f}% "
+                  f"top5 {top5:.2f}%")
+        return
     from mcm_tpu_torch.data.labels import prompt_permutation
     from mcm_tpu_torch.utils.meters import zero_shot_accuracy
     # align label indices with prompt rows (ImageNet100 prompts follow
@@ -460,12 +515,18 @@ def _weight_identity(cfg: RunConfig) -> Dict[str, object]:
     changes every score while every flag stays equal — without this,
     ``--resume`` would serve the old model's scores."""
     if cfg.model != "CLIP":
-        check_ported(cfg)   # vit-Linear, CLIP-Linear: their items raise
-    ident: Dict[str, object] = {"weights": file_identity(
-        resolve_clip_weight_source(cfg.clip_ckpt, cfg.ckpt_dir))}
+        check_ported(cfg)   # CLIP-Linear: its item raises
+    if cfg.model == "vit-Linear":
+        from mcm_tpu_torch.models.vit import resolve_vit_weight_source
+        ident: Dict[str, object] = {"weights": file_identity(
+            resolve_vit_weight_source(cfg.ckpt_dir))}
+    else:
+        ident = {"weights": file_identity(
+            resolve_clip_weight_source(cfg.clip_ckpt, cfg.ckpt_dir))}
     if cfg.finetune_ckpt:
+        # vit-Linear: the probe-head npz overriding the classifier
         ident["finetune_ckpt"] = file_identity(cfg.finetune_ckpt)
-    if cfg.score != "maha":
+    if cfg.model != "vit-Linear" and cfg.score != "maha":
         # vocab.json/merges.txt determine every token id, hence every text
         # feature and score.  None = hash-fallback tokenizer, which itself
         # participates in the (mis)match.  A maha run never tokenizes and
@@ -598,7 +659,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
     val_ds = set_val_loader(cfg.in_dataset, cfg.root_dir)
     test_labels = get_test_labels(cfg.in_dataset, val_ds)
 
-    needs_text = cfg.score != "maha"
+    needs_text = cfg.score != "maha" and cfg.model != "vit-Linear"
     _text: Dict[str, object] = {}
     _text_cache = os.path.join(
         cfg.log_directory,
@@ -675,8 +736,14 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
         # derived from them on the host; features cached for --resume
         feats, labels = _id_features_cached(step, dev_params, val_ds, cfg,
                                             log, telemetry)
-        in_score = compute_scores_host(feats, text_host(), score=cfg.score,
-                                       T=cfg.T)
+        if cfg.model == "vit-Linear":
+            # the "features" are classifier logits: score them directly
+            in_score = _scores_from_logits_host(
+                np.asarray(feats, np.float32), cfg.T)[cfg.score]
+            in_score = np.asarray(in_score, np.float32)
+        else:
+            in_score = compute_scores_host(feats, text_host(),
+                                           score=cfg.score, T=cfg.T)
         _log_id_accuracy(cfg, feats, labels, text_host(), log)
         save_scores(cfg.log_directory, f"ID_{cfg.in_dataset}", in_score)
     else:

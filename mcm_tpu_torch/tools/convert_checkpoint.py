@@ -1,17 +1,20 @@
-"""Convert an HF or OpenAI CLIP checkpoint into the ``.npz`` parameter tree.
+"""Convert an HF or OpenAI checkpoint into the ``.npz`` parameter tree.
 
     python -m mcm_tpu_torch.tools.convert_checkpoint --model clip \
         --ckpt ViT-B/16 --src /path/to/clip-vit-base-patch16 --out checkpoints/
     python -m mcm_tpu_torch.tools.convert_checkpoint --model clip \
         --ckpt ViT-B/16 --src /path/to/ViT-B-16.pt --out checkpoints/
+    python -m mcm_tpu_torch.tools.convert_checkpoint --model vit \
+        --src /path/to/vit-base-patch16-224 --out checkpoints/
 
 ``--src`` is an HF snapshot directory (``model.safetensors`` or
-``pytorch_model.bin``) or an original OpenAI ``.pt`` (TorchScript archive);
-the layout is sniffed.  Writes ``<out>/<sanitized ckpt>.npz`` (e.g.
-``ViT-B-16.npz``), the file both the port and the JAX package load first.
-``--model vit`` and ``--format orbax`` are accepted as the JAX package's
-tool accepts them, and raise: the supervised ViT is not ported yet
-(``ROADMAP.md`` Queue 1, item 6), and orbax is a JAX library.
+``pytorch_model.bin``) or, for CLIP, an original OpenAI ``.pt``
+(TorchScript archive); the CLIP layout is sniffed.  Writes
+``<out>/<sanitized ckpt>.npz`` (e.g. ``ViT-B-16.npz``) for CLIP and
+``<out>/vit-base-patch16-224.npz`` for the supervised ViT
+(``ViTForImageClassification``, 1000 classes): the files both the port
+and the JAX package load first.  ``--format orbax`` is accepted as the
+JAX package's tool accepts it, and raises: orbax is a JAX library.
 """
 
 from __future__ import annotations
@@ -34,24 +37,26 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     p.add_argument("--format", default="npz", choices=["npz", "orbax"])
     args = p.parse_args(argv)
 
-    if args.model == "vit":
-        raise NotImplementedError(
-            "--model vit needs convert_hf_vit, which is not ported yet: "
-            "ROADMAP.md Queue 1, item 6 (vit-Linear)")
     if args.format == "orbax":
         raise NotImplementedError(
             "--format orbax writes a JAX (orbax) checkpoint; the port writes "
             "--format npz only (ROADMAP.md Queue 3)")
 
-    from mcm_tpu_torch.config import CLIP_CONFIGS
+    from mcm_tpu_torch.config import CLIP_CONFIGS, SupervisedViTConfig
     from mcm_tpu_torch.models.convert import (_flatten, _sanitize,
                                               convert_clip_state_dict,
                                               load_state_dict, save_params)
 
-    params = convert_clip_state_dict(load_state_dict(args.src),
-                                     CLIP_CONFIGS[args.ckpt]())
+    sd = load_state_dict(args.src)
+    if args.model == "clip":
+        params = convert_clip_state_dict(sd, CLIP_CONFIGS[args.ckpt]())
+        name = f"{_sanitize(args.ckpt)}.npz"
+    else:
+        from mcm_tpu_torch.models.vit import VIT_NPZ, convert_hf_vit
+        params = convert_hf_vit(sd, SupervisedViTConfig(num_classes=1000))
+        name = VIT_NPZ
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, f"{_sanitize(args.ckpt)}.npz")
+    path = os.path.join(args.out, name)
     save_params(params, path)
     n = sum(np.asarray(x).size for x in _flatten(params).values())
     print(f"wrote {path} ({n / 1e6:.1f}M params)")

@@ -150,7 +150,7 @@ def test_cli_without_card_raises_unless_cpu(tmp_path, monkeypatch):
         main(["--allow_random_weights"])
 
 
-@pytest.mark.parametrize("flags", [["--model", "vit-Linear"],
+@pytest.mark.parametrize("flags", [["--n_devices", "2"],
                                    ["--model", "CLIP-Linear"],
                                    ["--fast_decode"],
                                    ["--model_parallel", "2"]])

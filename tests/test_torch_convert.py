@@ -328,7 +328,7 @@ def test_tool_writes_the_npz_of_the_jax_tool(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "vit"], "Queue 1, item 6"),
+    (["--model", "vit", "--format", "orbax"], "orbax"),
     (["--model", "clip", "--format", "orbax"], "orbax")])
 def test_tool_refuses_what_is_not_ported(tmp_path, flags, match):
     from mcm_tpu_torch.tools import convert_checkpoint

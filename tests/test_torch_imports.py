@@ -29,8 +29,14 @@ for name in names:
 import chip_smoke
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+#: modules the guard must reach by name (the walk finds every module; these
+#: are the entry points and the modules of the vit-Linear and serving paths)
+_NAMED = ("mcm_tpu_torch.models.vit", "mcm_tpu_torch.scores.msp",
+          "mcm_tpu_torch.cli.eval_msp", "mcm_tpu_torch.cli.eval_ood",
+          "mcm_tpu_torch.serve", "mcm_tpu_torch.serve_http")
 
 
 def test_port_imports_no_jax():
@@ -39,7 +45,9 @@ def test_port_imports_no_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 30
+    names = proc.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 35
+    assert set(_NAMED) <= set(names), set(_NAMED) - set(names)
 
 
 def test_guard_blocks_the_jax_package():

@@ -750,3 +750,96 @@ def test_odin_gradient_pass_launches_no_kernel(cuda):
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == before[:-1] + [before[-1] + 1]
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-6)
+
+
+# -- the vit-Linear tower and the serving detector ------------------------------
+#
+# The supervised ViT at width 128, 2 heads (Dh = 64) on the card: the bsd
+# kernel in every layer, held against the same tower on the math path
+# (attn_impl="xla") at the cosine bound the JAX package holds bf16 to
+# (0.995) and 1e-2 of the largest |logit|.  The serving detector on the
+# tiny ViT-B/16 double through the bsd and MCM kernels against the same
+# detector on the CPU's plain path, at the serve tests' cross-bucket
+# tolerance (rtol 5e-3, atol 5e-4) and equal classes.
+
+def _tiny_vit():
+    from mcm_tpu_torch.config import SupervisedViTConfig
+    from mcm_tpu_torch.models.init import init_supervised_vit
+    cfg = SupervisedViTConfig(image_size=64, patch_size=16, width=128,
+                              layers=2, heads=2, num_classes=100)
+    return cfg, init_supervised_vit(4, cfg)
+
+
+def test_vit_tower_kernels_match_the_plain_path(cuda):
+    import dataclasses
+
+    from mcm_tpu_torch.parallel import VitLinearStep
+    cfg, params = _tiny_vit()
+    rng = np.random.default_rng(8)
+    images = torch.from_numpy(rng.integers(0, 256, size=(16, 64, 64, 3),
+                                           dtype=np.uint8)).to(cuda)
+    step = VitLinearStep(cfg, device=cuda)
+    plain = VitLinearStep(cfg, device=cuda, precision=dataclasses.replace(
+        Precision.fast(), attn_impl="xla"))
+    model = step.put_params(params)
+    before = attention.bsd_attention.launches
+    got = step.features(model, images)
+    torch.cuda.synchronize()
+    assert attention.bsd_attention.launches == before + cfg.layers
+    want = plain.features(model, images)
+    torch.cuda.synchronize()
+    assert attention.bsd_attention.launches == before + cfg.layers
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    assert float(cos.min()) > 0.995
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+    scores = step.score(model, images)
+    assert bool(torch.isfinite(scores).all()) and scores.shape == (16,)
+
+
+def test_vit_odin_on_the_card_launches_no_kernel(cuda):
+    from mcm_tpu_torch.parallel import VitLinearStep
+    cfg, params = _tiny_vit()
+    rng = np.random.default_rng(9)
+    images = torch.from_numpy(rng.integers(0, 256, size=(4, 64, 64, 3),
+                                           dtype=np.uint8)).to(cuda)
+    counters = [attention.bsd_attention, mlp.fused_mlp, mcm_score.mcm_score]
+    before = [fn.launches for fn in counters]
+    odin0 = VitLinearStep(cfg, score="odin", device=cuda, noise_magnitude=0.0)
+    model = odin0.put_params(params)
+    got = odin0.score(model, images)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == before
+    cpu = VitLinearStep(cfg, score="odin", device="cpu", noise_magnitude=0.0)
+    want = cpu.score(cpu.put_params(params), images.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_detector_through_the_kernels_matches_the_cpu_plain_path(
+        cuda, monkeypatch):
+    import warnings
+
+    from mcm_tpu_torch.serve import MicroBatcher, OODDetector
+    monkeypatch.setenv("MCM_TPU_TEST_TINY_B16", "1")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dets = {dev: OODDetector(class_names=["cat", "dog", "owl", "eel"],
+                                 allow_random_weights=True,
+                                 batch_sizes=(1, 4), device=dev)
+                for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(10)
+    images = rng.integers(0, 256, size=(6, 224, 224, 3), dtype=np.uint8)
+    layers = 2                                       # the double's depth
+    bsd, mcm = attention.bsd_attention.launches, mcm_score.mcm_score.launches
+    got = dets["cuda"].score_images(images)          # 2 chunks of bucket 4
+    assert attention.bsd_attention.launches == bsd + 2 * layers
+    assert mcm_score.mcm_score.launches == mcm + 2
+    want = dets["cpu"].score_images(images)
+    np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-4)
+    idx, scores = dets["cuda"].classify_images(images)
+    c_idx, c_scores = dets["cpu"].classify_images(images)
+    np.testing.assert_array_equal(idx, c_idx)
+    np.testing.assert_allclose(scores, c_scores, rtol=5e-3, atol=5e-4)
+    with MicroBatcher(dets["cuda"], max_wait_ms=20) as mb:
+        served = np.array([f.result(timeout=120)
+                           for f in [mb.submit(im) for im in images]])
+    np.testing.assert_allclose(served, want, rtol=5e-3, atol=5e-4)
