@@ -72,6 +72,22 @@
    with ``score_images``'s scores, and ``close()`` answers what the batcher
    holds.  Prints p50 / p99 single-request latency and images/s, each with
    the card's name and power limit.
+   Training, after the maha run, on its ImageNet10 tree and the converted
+   weights: (a) ``mcm_tpu_torch.tools.finetune_clip``, one epoch of ``-b
+   64`` over the 800 train images (12 steps on JAX's default route, the
+   math-path attention: no launch), its loss finite and its checkpoint
+   written, then ``eval_ood --model CLIP-Linear --finetune_ckpt`` on it
+   with MCM (bsd 12 and MCM 1 per image batch, the CSV, the log naming the
+   file); (b) ``make_train_step`` in bf16 under remat on one repeated
+   batch of 64, ``xla`` then ``pallas_bsd_vjp``: the loss falls over 5
+   steps on both, step-1 losses within 5e-4 relative and each leaf's
+   step-1 gradient within 0.25 (relative L2) of the math path's, bsd 24
+   launches a step on
+   the trainable route (12 vision layers, forward + recompute) and none on
+   ``xla``; (c) the trainable attention alone at (64, 197, 768), 12 heads:
+   q/k/v gradients bit-equal to the math path's, the output within one
+   bf16 ulp of the plain version, forward + backward ms; (d)
+   ``tools.train_attn_probe``'s four cells (ms a step, peak memory).
 4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
    turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
@@ -85,8 +101,8 @@
    own shapes (B = 512) with a shorter chain: no row may fail, and every
    kernel they reach must be launched.
 6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line (its
-   ``launches``: bsd and MCM summed over the slice phase's CLI and serving
-   runs, the knob kernels over their bench runs, the tools' kernels over
+   ``launches``: bsd and MCM summed over the slice phase's CLI, training
+   and serving runs, the knob kernels over their bench runs, the tools' kernels over
    their tool's run), the card line again and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -737,8 +753,8 @@ def slice_phase(work: str) -> dict:
     emit(out)
     path = {"bsd_attention": launches["bsd_attention"],
             "mcm_score": launches["mcm_score"]}
-    for fn in (maha_run, odin_run, accuracy_resume_runs, vit_runs,
-               serve_run):
+    for fn in (maha_run, train_runs, odin_run, accuracy_resume_runs,
+               vit_runs, serve_run):
         for k, v in fn(work, data, ckpt).items():
             path[k] += v
     return path
@@ -1356,9 +1372,17 @@ def math_path_check(data: str, ckpt: str) -> dict:
                 lambda: math_step.score(params, images, text, impl="torch"))}
 
 
+#: device-time classes of a profile, by kernel name (first match wins)
+KERNEL_KINDS = (("gemm", r"gemm|nvjet|cutlass|xmma|sm90_"),
+                ("bsd", r"bsd"), ("optimizer", r"multi_tensor|[Aa]dam"),
+                ("copy_cast", r"copy"), ("reduce", r"reduce"),
+                ("elementwise", r"elementwise"))
+
+
 def profile_batches(fn, n: int = 3) -> dict:
     """torch.profiler over ``n`` score calls on one batch: host wall and
-    summed device (self) time per batch, and the kernels that take it."""
+    summed device (self) time per batch, the kernels that take it, and
+    that time by KERNEL_KINDS."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1372,17 +1396,300 @@ def profile_batches(fn, n: int = 3) -> dict:
     times = {}
     for e in prof.key_averages():
         # device-side events only (kernels and copies): a CPU op's self
-        # device time counts the same kernels a second time
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # device time counts the same kernels a second time, and so does a
+        # user annotation's device range (the optimizer's step)
+        if str(getattr(e, "device_type", "")).endswith("CUDA") \
+                and not getattr(e, "is_user_annotation", False):
             us = getattr(e, "self_device_time_total", 0) or 0
             if us > 0:
                 times[e.key] = times.get(e.key, 0.0) + us / 1e3 / n
     top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
     device_ms = sum(times.values())
+    kinds = {}
+    for name, ms in times.items():
+        kind = next((k for k, pat in KERNEL_KINDS if re.search(pat, name)),
+                    "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
     return {"wall_ms_per_batch": wall * 1e3 / n,
             "device_ms_per_batch": device_ms if times else None,
             "device_busy_share": device_ms / (wall * 1e3 / n) if times else None,
-            "top_device_ms_per_batch": top}
+            "top_device_ms_per_batch": top, "device_ms_by_kind": kinds}
+
+
+# -- 3b. train phase (inside the slice phase, on its weights and trees) ----------
+
+TRAIN_BATCH = 64                 # -b of the fine-tune and the step checks
+TRAIN_STEPS = 5                  # steps of the vjp-vs-xla comparison
+# the two routes' step 1 on the converted weights: the bsd kernel's forward
+# against the math path's (bf16 softmax).  The loss sits near chance
+# (ln 64) there and moves little with the features, so the route is held on
+# what it moves: each leaf's step-1 gradient, as a relative L2 gap to the
+# math path's (the key biases left out: their gradient is zero but for
+# rounding, softmax being shift-invariant).  Bounds: about 3-4x the gaps
+# measured on the H100 (PERF.md, PR 9): the loss 1.1e-4 relative, the
+# worst leaf 0.081 (logit_scale's exp(·) = 100 turns the kernel's bf16
+# rounding into a few percent of softmax mass; features through a
+# miswired attention would differ by O(1))
+STEP_LOSS_REL_TOL = 5e-4
+STEP_GRAD_REL_TOL = 0.25
+
+
+def _quiet_run(work: str, argv, cli_main) -> tuple:
+    """``cli_run`` with the CLI's standard output captured (and echoed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = cli_run(work, argv, cli_main)
+    print(buf.getvalue(), end="", flush=True)
+    return run, buf.getvalue()
+
+
+def _train_batch(data: str) -> tuple:
+    """64 ImageNet10 train images (a seeded draw over the 10 classes, so
+    captions repeat) with their hash-tokenizer captions, on the card."""
+    from mcm_tpu_torch.config import CLIP_CONFIGS
+    from mcm_tpu_torch.data import DataPipeline, get_test_labels, set_train_loader
+    from mcm_tpu_torch.runner import _HashTokenizer
+    from mcm_tpu_torch.train import ShuffledView
+
+    cfg = CLIP_CONFIGS["ViT-B/16"]()
+    ds = set_train_loader("ImageNet10", data)
+    perm = np.random.default_rng(0).permutation(len(ds))
+    batch = next(iter(DataPipeline(ShuffledView(ds, perm), TRAIN_BATCH,
+                                   num_workers=8, drop_remainder=True)))
+    names = get_test_labels("ImageNet10", ds)
+    ids, mask = _HashTokenizer(cfg.text.vocab_size)(
+        [f"a photo of a {c}" for c in names], pad_to_multiple=8,
+        context_length=cfg.text.context_length)
+    labels = batch.labels
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (
+        batch.images, np.asarray(ids, np.int32)[labels],
+        np.asarray(mask, np.int32)[labels]))
+
+
+def finetune_run(work: str, data: str, ckpt: str) -> dict:
+    """(a) ``tools.finetune_clip``: one epoch of ``-b 64`` over the 800
+    ImageNet10 train images (12 steps, the math-path attention of JAX's
+    default route: no kernel launch); then ``--model CLIP-Linear
+    --finetune_ckpt`` on its output through the eval CLI with MCM."""
+    from mcm_tpu_torch.tools import finetune_clip
+    out = os.path.join(work, "finetuned_ImageNet10.npz")
+    n_train = MAHA_TRAIN_PER_CLASS * 10
+    steps = n_train // TRAIN_BATCH
+    run, text = _quiet_run(work, [
+        "--in_dataset", "ImageNet10", "--root-dir", data, "--CLIP_ckpt",
+        "ViT-B/16", "-b", str(TRAIN_BATCH), "--epochs", "1", "--ckpt_dir",
+        ckpt, "--allow_random_weights", "--num_workers", "8", "--out", out,
+        "--device", "cuda"], finetune_clip.main)
+    _check_only(run["launches"], {}, "fine-tune (math-path attention)")
+    m = re.search(r"epoch 1/1: loss (\S+)  \((\d+) steps, ([0-9.]+)s\)", text)
+    check(m is not None and int(m.group(2)) == steps
+          and math.isfinite(float(m.group(1))),
+          f"fine-tune epoch line {m.group(0) if m else None}: want "
+          f"{steps} steps and a finite loss")
+    check(os.path.exists(out) and os.path.exists(out + ".train_state.npz"),
+          f"the fine-tune wrote no {out} (+ .train_state.npz)")
+    from mcm_tpu_torch.models.convert import _flatten, load_params
+    tree = _flatten(load_params(out))
+    check(all(bool(np.isfinite(v).all()) for v in tree.values()),
+          f"non-finite leaves in {out}")
+
+    name = "chip_smoke_clip_linear"
+    ev = cli_run(work, _cli_argv(data, ckpt, name, "--in_dataset",
+                                 "ImageNet10", "--score", "MCM", "-b",
+                                 str(BATCH), "--model", "CLIP-Linear",
+                                 "--finetune_ckpt", out))
+    n_batches = -(-MAHA_N_VAL // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
+    _check_only(ev["launches"], {"bsd_attention": 12 * n_batches,
+                                 "mcm_score": n_batches},
+                f"CLIP-Linear MCM run over {n_batches} image batches")
+    log_dir = os.path.join(work, "results", "ImageNet10", "MCM",
+                           f"CLIP-Linear_ViT-B/16_T_1_ID_{name}")
+    _check_scores(log_dir, dict([("ID_ImageNet10", MAHA_N_VAL)]
+                                + [(o, N_OOD) for o in OOD_SETS]))
+    csv = os.path.join(log_dir, f"{name}.csv")
+    check(os.path.exists(csv), f"no CSV at {csv}")
+    log = _read_log(log_dir)
+    src = re.search(r"weights resolved in [0-9.]+s from (.*)$", log, re.M)
+    check(src is not None and out in src.group(1),
+          f"the CLIP-Linear log does not name {out}: "
+          f"{src.group(0) if src else None}")
+    emit({"phase": "train_finetune", "in_dataset": "ImageNet10",
+          "batch": TRAIN_BATCH, "train_images": n_train, "steps": steps,
+          "epoch_loss": float(m.group(1)), "epoch_s": float(m.group(3)),
+          "images_per_s_in_epoch": steps * TRAIN_BATCH / float(m.group(3)),
+          "tool_wall_s": run["cli_wall_s"], "launches": run["launches"],
+          "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+          "checkpoint_bytes": os.path.getsize(out)})
+    emit({"phase": "train_clip_linear_eval", "batch": BATCH,
+          "image_batches": n_batches, "launches": ev["launches"],
+          "results": ev["results"], "cli_wall_s": ev["cli_wall_s"],
+          "images": MAHA_N_VAL + N_OOD * len(OOD_SETS),
+          "loop_images_per_s": _loop_rate(log),
+          "max_memory_allocated_bytes": ev["max_memory_allocated_bytes"],
+          "csv": open(csv).read().strip().splitlines()})
+    return {"bsd_attention": ev["launches"]["bsd_attention"],
+            "mcm_score": ev["launches"]["mcm_score"]}
+
+
+def step_compare(data: str, ckpt: str) -> dict:
+    """(b) ``make_train_step`` on the converted weights, bf16, remat, each
+    route five steps on one repeated batch of 64: the loss falls on both;
+    step-1 losses within STEP_LOSS_REL_TOL and every leaf's step-1
+    gradient within STEP_GRAD_REL_TOL of the math path's; bsd 24 launches
+    a step on ``pallas_bsd_vjp`` (12 vision layers, forward + recompute;
+    the masked text tower takes the math path) and none on ``xla``."""
+    import dataclasses
+
+    from mcm_tpu_torch.config import CLIP_CONFIGS, Precision
+    from mcm_tpu_torch.models.convert import load_params
+    from mcm_tpu_torch.ops.attention import bsd_attention
+    from mcm_tpu_torch.train import make_train_step
+
+    cfg = CLIP_CONFIGS["ViT-B/16"]()
+    tree = load_params(os.path.join(ckpt, "ViT-B-16.npz"))
+    images, ids, mask = _train_batch(data)
+    out, launches, grads = {}, {}, {}
+    for route, per_step in (("xla", 0), ("pallas_bsd_vjp", 24)):
+        init_state, step = make_train_step(
+            cfg, precision=dataclasses.replace(Precision.fast(),
+                                               attn_impl=route),
+            device="cuda")
+        state = init_state(tree)
+        torch.cuda.synchronize()
+        counters = _all_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            state, loss = step(state, images, ids, mask)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                # step 1's gradients, before the next step zeroes them
+                grads[route] = {n: p.grad.detach().clone() for n, p in
+                                state.params.named_parameters()}
+        got = {n: fn.launches for n, fn in counters.items()}
+        _check_only(got, {"bsd_attention": per_step * TRAIN_STEPS} if per_step
+                    else {}, f"{route} train steps")
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"{route}: the loss did not fall over {TRAIN_STEPS} steps: "
+              f"{losses}")
+        launches[route] = got["bsd_attention"]
+        out[route] = {"losses": losses, "step_ms": ms,
+                      "bsd_launches": got["bsd_attention"],
+                      "max_memory_allocated_bytes":
+                      torch.cuda.max_memory_allocated()}
+        out[route]["profile"] = profile_batches(
+            lambda: step(state, images, ids, mask), n=2)
+        state = None
+        torch.cuda.empty_cache()
+    d1 = abs(out["pallas_bsd_vjp"]["losses"][0] - out["xla"]["losses"][0])
+    tol = STEP_LOSS_REL_TOL * abs(out["xla"]["losses"][0])
+    gaps = {n: float(torch.linalg.vector_norm(g - grads["pallas_bsd_vjp"][n])
+                     / torch.linalg.vector_norm(g))
+            for n, g in grads["xla"].items() if not n.endswith("attn.bk")}
+    worst = max(gaps, key=gaps.get)
+    check(all(math.isfinite(v) for v in gaps.values()),
+          f"non-finite step-1 gradient gaps: {gaps}")
+    check(gaps[worst] <= STEP_GRAD_REL_TOL,
+          f"step-1 gradient of {worst}: vjp vs xla relative gap "
+          f"{gaps[worst]} > {STEP_GRAD_REL_TOL}; all gaps {gaps}")
+    check(d1 <= tol, f"step-1 losses vjp vs xla differ by {d1} > {tol}")
+    emit({"phase": "train_step_routes", "batch": TRAIN_BATCH,
+          "steps": TRAIN_STEPS, "weights": "the converted ViT-B-16.npz",
+          "step1_loss_delta": d1, "step1_loss_tol": tol,
+          "step1_grad_rel_gaps": gaps, "step1_grad_worst_leaf": worst,
+          "step1_grad_rel_tol": STEP_GRAD_REL_TOL, **out})
+    return {"bsd_attention": launches["pallas_bsd_vjp"]}
+
+
+def trainable_attention_check() -> dict:
+    """(c) the trainable attention alone at (64, 197, 768), 12 heads, bf16:
+    q/k/v gradients bit-equal to ``torch.autograd.grad`` of the math path
+    (same inputs, same upstream gradient); the output within one bf16 ulp
+    of the bsd kernel's plain version and within BSD_TOL of the math path
+    (whose softmax is bf16); CUDA-event ms of forward + backward beside
+    the math path's."""
+    import dataclasses
+
+    from mcm_tpu_torch.config import Precision
+    from mcm_tpu_torch.ops import attention
+
+    shape, heads = (TRAIN_BATCH, 197, 768), 12
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    vjp = dataclasses.replace(Precision.fast(), attn_impl="pallas_bsd_vjp")
+    math_p = dataclasses.replace(Precision.fast(), attn_impl="xla")
+
+    def fwd_bwd(prec):
+        out = attention.encoder_attention(q, k, v, heads=heads, mask=None,
+                                          precision=prec)
+        return out, torch.autograd.grad(out, (q, k, v), g)
+
+    before = attention.bsd_attention.launches
+    out, grads = fwd_bwd(vjp)
+    torch.cuda.synchronize()
+    check(attention.bsd_attention.launches == before + 1,
+          "the trainable attention's forward + backward did not launch bsd "
+          "exactly once")
+    ref, want = fwd_bwd(math_p)
+    equal = [bool(torch.equal(a, b)) for a, b in zip(grads, want)]
+    check(all(equal), f"trainable attention q/k/v gradients differ from the "
+          f"math path's: bit-equal {equal}")
+    plain = attention.bsd_attention_reference(q.detach(), k.detach(),
+                                              v.detach(), heads).float()
+    ulp = 2.0 ** (math.floor(math.log2(float(plain.abs().max()))) - 7)
+    err_plain = float((out.float() - plain).abs().max())
+    err_math = float((out.float() - ref.float()).abs().max())
+    check(err_plain <= ulp, f"trainable attention vs the plain version: "
+          f"{err_plain} > one bf16 ulp {ulp}")
+    check(err_math <= BSD_TOL[torch.bfloat16],
+          f"trainable attention vs the math path: {err_math} > "
+          f"{BSD_TOL[torch.bfloat16]}")
+    row = {"phase": "train_trainable_attention", "shape": list(shape),
+           "heads": heads, "grads_bit_equal": equal,
+           "max_abs_err_vs_plain": err_plain, "plain_tol": ulp,
+           "max_abs_err_vs_math_path": err_math,
+           "math_path_tol": BSD_TOL[torch.bfloat16],
+           "fwd_bwd_ms": cuda_ms(lambda: fwd_bwd(vjp), iters=10),
+           "math_fwd_bwd_ms": cuda_ms(lambda: fwd_bwd(math_p), iters=10)}
+    emit(row)
+    return row
+
+
+def probe_cells() -> dict:
+    """(d) ``tools.train_attn_probe``'s four cells (B/16, batch 64, random
+    weights): ms a step, images/s, peak memory, bsd launches a step."""
+    from mcm_tpu_torch.tools import train_attn_probe
+    rows = train_attn_probe.time_variants("cuda")
+    want = {"xla/remat=True": 0, "vjp/remat=True": 24,
+            "xla/remat=False": 0, "vjp/remat=False": 12}
+    for r in rows:
+        check("error" not in r, f"train_attn_probe {r['cell']}: {r.get('error')}")
+        check(r["bsd_launches_per_step"] == want[r["cell"]],
+              f"train_attn_probe {r['cell']}: {r['bsd_launches_per_step']} "
+              f"bsd launches a step, want {want[r['cell']]}")
+    emit({"phase": "train_attn_probe", "rows": rows})
+    return {r["cell"]: r for r in rows}
+
+
+def train_runs(work: str, data: str, ckpt: str) -> dict:
+    """The train phase: (a)-(d); returns bsd and MCM launches of the
+    fine-tune / CLIP-Linear eval and the vjp steps."""
+    t = time.perf_counter()
+    path = finetune_run(work, data, ckpt)
+    path["bsd_attention"] += step_compare(data, ckpt)["bsd_attention"]
+    trainable_attention_check()
+    probe_cells()
+    emit({"phase": "train_wall_s", "s": time.perf_counter() - t})
+    return path
 
 
 # -- 4. bench phase --------------------------------------------------------------

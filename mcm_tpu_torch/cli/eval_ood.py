@@ -18,10 +18,12 @@ but derived from the checkpoint.  Every score runs, ``maha`` (templates
 from the ID train split under ``--template_dir``, estimated with
 ``--generate``, or read from there) and ``odin`` included, as do
 ``--eval_accuracy``, ``--resume`` and ``--trace_dir`` (a ``torch.profiler``
-Chrome trace of the ID pass).  ``--model vit-Linear`` scores the
-supervised ViT's classifier logits (weights under ``--ckpt_dir``, a probe
-head through ``--finetune_ckpt``).  Options whose code is not ported yet
-(``--model CLIP-Linear``, ``--fast_decode``, ``--model_parallel > 1``,
+Chrome trace of the ID pass).  ``--model CLIP-Linear`` runs the CLIP
+path on the whole fine-tuned tree in ``--finetune_ckpt``
+(``python -m mcm_tpu_torch.tools.finetune_clip`` writes one).  ``--model
+vit-Linear`` scores the supervised ViT's classifier logits (weights under
+``--ckpt_dir``, a probe head through ``--finetune_ckpt``).  Options whose
+code is not ported yet (``--fast_decode``, ``--model_parallel > 1``,
 ``--n_devices > 1``) raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item.
 """

@@ -150,9 +150,9 @@ class Precision:
     #: or force "xla" (the math path) / "pallas_bsd" (the bsd kernel) /
     #: "pallas" | "pallas_mh" | "pallas_batched" (the split-heads kernel
     #: in one of its three launch shapes) / "flash" (the flash kernel).
-    #: "pallas_bsd_vjp" is accepted and raises until training is ported;
-    #: any other name takes the math path, as in the JAX package.  Masked
-    #: (text-tower) calls take the math path.
+    #: "pallas_bsd_vjp" is the trainable route: the "auto" forward and the
+    #: math path's gradient; any other name takes the math path, as in the
+    #: JAX package.  Masked (text-tower) calls take the math path.
     attn_impl: str = "auto"
     #: MLP implementation: "pallas" — the fused MLP kernel, in both towers;
     #: anything else ("auto", "xla") — plain matmuls.

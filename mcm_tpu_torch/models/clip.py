@@ -45,23 +45,26 @@ _COMPUTE_DTYPE_LEAVES = frozenset({
 
 
 class ParamTree(nn.Module):
-    """Nested parameters under the JAX tree's names (frozen: inference).
-    Leaves named in ``compute_leaves`` are stored in ``dtype``, the rest in
-    fp32."""
+    """Nested parameters under the JAX tree's names.  Leaves named in
+    ``compute_leaves`` are stored in ``dtype``, the rest in fp32; they are
+    frozen (inference) unless ``requires_grad`` (training, where every leaf
+    is an fp32 master copy the forward casts per product, as JAX's)."""
 
     def __init__(self, tree: Dict[str, Any], device: torch.device,
                  dtype: torch.dtype,
-                 compute_leaves: frozenset = _COMPUTE_DTYPE_LEAVES):
+                 compute_leaves: frozenset = _COMPUTE_DTYPE_LEAVES,
+                 requires_grad: bool = False):
         super().__init__()
         for key, value in tree.items():
             if isinstance(value, dict):
                 self.add_module(key, ParamTree(value, device, dtype,
-                                               compute_leaves))
+                                               compute_leaves, requires_grad))
             else:
                 dt = dtype if key in compute_leaves else torch.float32
                 t = torch.from_numpy(np.array(value, np.float32))
                 self.register_parameter(key, nn.Parameter(
-                    t.to(device=device, dtype=dt), requires_grad=False))
+                    t.to(device=device, dtype=dt),
+                    requires_grad=requires_grad))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -104,10 +107,16 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     return y.to(cdt)
 
 
-def _layer(layers: nn.Module, i: int) -> Dict[str, Any]:
-    """Layer ``i``'s parameters out of the stacked tree (views)."""
-    return {name: ({leaf: p[i] for leaf, p in sub.named_parameters()})
-            for name, sub in layers.named_children()}
+def _unstack(layers: nn.Module) -> list:
+    """Each layer's parameters out of the stacked tree, as views.  One
+    ``unbind`` a leaf: its gradient is one stack of the layers' gradients
+    (indexing each layer would add a zero-filled full-size gradient per
+    layer)."""
+    split = {name: {leaf: p.unbind(0) for leaf, p in sub.named_parameters()}
+             for name, sub in layers.named_children()}
+    n = layers["ln1"]["scale"].shape[0]
+    return [{name: {leaf: ps[i] for leaf, ps in sub.items()}
+             for name, sub in split.items()} for i in range(n)]
 
 
 def transformer_block(x: torch.Tensor, layer: Dict[str, Any], *, heads: int,
@@ -139,10 +148,9 @@ def run_transformer(x: torch.Tensor, layers: nn.Module, *, heads: int,
                     precision: Precision, collect_hidden: bool = False):
     """Loop over the stacked per-layer parameters.  ``collect_hidden=True``
     also returns the per-layer outputs stacked as [L, B, S, D]."""
-    n = layers["ln1"]["scale"].shape[0]
     hs = []
-    for i in range(n):
-        x = transformer_block(x, _layer(layers, i), heads=heads, eps=eps,
+    for layer in _unstack(layers):
+        x = transformer_block(x, layer, heads=heads, eps=eps,
                               mask=mask, precision=precision)
         if collect_hidden:
             hs.append(x)

@@ -344,14 +344,32 @@ def load_params(path: str) -> Params:
 
 
 def from_jax_params(params: Params, device="cuda",
-                    dtype: torch.dtype = torch.float32) -> CLIP:
+                    dtype: torch.dtype = torch.float32,
+                    trainable: bool = False) -> CLIP:
     """The JAX package's parameter tree (numpy arrays, as ``init_clip`` or
     ``load_params`` return it) → the port's :class:`CLIP` module on
     ``device``.  ``dtype`` is the storage type of the matrices and
     embeddings (what the forward casts them to anyway); LayerNorm
     parameters, biases and ``logit_scale`` stay fp32, as the forward uses
-    them in fp32."""
-    return CLIP(params, resolve_device(device), dtype)
+    them in fp32.  ``trainable=True`` gives every leaf in fp32 with
+    ``requires_grad``: the master parameters of training, as JAX trains
+    ``init_clip``'s fp32 tree."""
+    if trainable and dtype != torch.float32:
+        raise ValueError(f"trainable parameters are fp32 master copies; "
+                         f"got dtype={dtype}")
+    return CLIP(params, resolve_device(device), dtype,
+                requires_grad=trainable)
+
+
+def to_jax_params(model: torch.nn.Module) -> Params:
+    """The inverse of :func:`from_jax_params`: the module's leaves as the
+    JAX package's numpy tree (fp32, ``init_clip``'s keys and shapes), on
+    the host, ready for :func:`save_params`."""
+    tree: Params = {name: to_jax_params(sub)
+                    for name, sub in model.named_children()}
+    for name, p in model.named_parameters(recurse=False):
+        tree[name] = p.detach().to("cpu", torch.float32, copy=True).numpy()
+    return tree
 
 
 # ---------------------------------------------------------------------------

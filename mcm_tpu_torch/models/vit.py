@@ -33,7 +33,7 @@ import torch
 
 from mcm_tpu_torch.config import Precision, SupervisedViTConfig, resolve_device
 from mcm_tpu_torch.models.clip import (_COMPUTE_DTYPE_LEAVES, ParamTree, _dense,
-                                       _layer, layer_norm, patchify)
+                                       _unstack, layer_norm, patchify)
 from mcm_tpu_torch.models.convert import (_ckpt_dir, _snapshot_weight_file,
                                           _stack, load_params, load_state_dict,
                                           save_params)
@@ -100,9 +100,8 @@ def forward_features(params: SupervisedViT, cfg: SupervisedViTConfig,
     cls = params["class_emb"].to(cdt).expand(x.shape[0], 1, cfg.width)
     x = torch.cat([cls, x], dim=1) + params["pos_emb"].to(cdt)
 
-    layers = params["layers"]
-    for i in range(layers["ln1"]["scale"].shape[0]):
-        x = _vit_block(x, _layer(layers, i), heads=cfg.heads,
+    for layer in _unstack(params["layers"]):
+        x = _vit_block(x, layer, heads=cfg.heads,
                        eps=cfg.layer_norm_eps, precision=precision)
     return layer_norm(x[:, 0, :], params["final_ln"]["scale"],
                       params["final_ln"]["bias"], cfg.layer_norm_eps)

@@ -31,10 +31,16 @@
 * :func:`encoder_attention` routes as the JAX package does; "auto" means
   the bsd kernel for an unmasked bf16 call on a CUDA tensor whose shapes
   it takes, and the math path for everything else.
+* :func:`trainable_encoder_attention` (``attn_impl="pallas_bsd_vjp"``, the
+  counterpart of JAX's ``custom_vjp`` of the same name) brings the bsd
+  kernel to training: its forward is the "auto" route, its backward the
+  gradient of the math path recomputed from the saved q/k/v, as JAX
+  recomputes it with XLA.  No backward kernel: JAX has none either.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -330,6 +336,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+class _TrainableAttention(torch.autograd.Function):
+    """Forward: ``encoder_attention`` under ``attn_impl="auto"`` (the bsd
+    kernel on a CUDA bf16 tensor at its shapes; the math path elsewhere).
+    Backward: ``torch.autograd.grad`` of the math path on the saved q/k/v,
+    so the gradients are exactly the math path's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, precision):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads, ctx.precision = heads, precision
+        return encoder_attention(
+            q, k, v, heads=heads, mask=None,
+            precision=dataclasses.replace(precision, attn_impl="auto"))
+
+    @staticmethod
+    def backward(ctx, g):
+        math_p = dataclasses.replace(ctx.precision, attn_impl="xla")
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_()
+                       for t in ctx.saved_tensors)
+            out = encoder_attention(q, k, v, heads=ctx.heads, mask=None,
+                                    precision=math_p)
+            grads = torch.autograd.grad(out, (q, k, v), g)
+        return (*grads, None, None)
+
+
+def trainable_encoder_attention(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, heads: int,
+                                precision: Precision) -> torch.Tensor:
+    """Unmasked ``[B, S, D]`` attention with a gradient
+    (``attn_impl="pallas_bsd_vjp"``): the bsd kernel's forward, the math
+    path's backward, recomputed from q/k/v.  Under the train step's
+    gradient checkpointing the forward runs twice a step (once more in the
+    recompute), the backward once; the saved tensors are the function's
+    own inputs, so it stores nothing the math path would not."""
+    return _TrainableAttention.apply(q, k, v, heads, precision)
+
+
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       heads: int, mask: Optional[torch.Tensor],
                       precision: Precision) -> torch.Tensor:
@@ -342,9 +386,7 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if mask is not None:
             impl = "xla"   # masked (text-tower) calls: the math path
         else:
-            raise NotImplementedError(
-                "attn_impl='pallas_bsd_vjp' (trainable bsd attention) is not "
-                "ported yet: ROADMAP.md Queue 1, item 8 (training)")
+            return trainable_encoder_attention(q, k, v, heads, precision)
     # d % heads guards a heads count that doesn't divide D, which the
     # split-heads path would reject but the kernel would silently compute
     # with fake slice-derived "heads".

@@ -18,10 +18,12 @@ plots → CSV, on one CUDA device:
   ``.pt``, ``detection_util.py:175-176``; a reference pair is read too).
 
 This covers ``--model CLIP`` with every score (the five logit scores,
-``maha`` and ``odin``) and ``--model vit-Linear`` (the supervised ViT +
-linear head, scored from its logits; ``maha`` refused).  The options of
-the JAX runner not ported yet raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+``maha`` and ``odin``), ``--model CLIP-Linear`` (the same, on a fine-tuned
+tree from ``--finetune_ckpt``, as ``mcm_tpu_torch.tools.finetune_clip``
+writes it) and ``--model vit-Linear`` (the supervised ViT + linear head,
+scored from its logits; ``maha`` refused).  The options of the JAX runner
+not ported yet raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ from mcm_tpu_torch.data import (DataPipeline, default_out_datasets,
                                 set_train_loader, set_val_loader,
                                 validate_out_datasets)
 from mcm_tpu_torch.metrics import get_and_print_results, print_measures
-from mcm_tpu_torch.models.convert import (file_identity, resolve_clip_params,
+from mcm_tpu_torch.models.convert import (file_identity, load_params,
+                                          resolve_clip_params,
                                           resolve_clip_weight_source)
 from mcm_tpu_torch.models.init import init_clip
 from mcm_tpu_torch.parallel import EvalStep, VitLinearStep
@@ -116,8 +119,6 @@ class RunConfig:
 def check_ported(cfg: RunConfig) -> None:
     """Raise for every option of the JAX runner this slice does not port."""
     todo = []
-    if cfg.model == "CLIP-Linear":
-        todo.append("--model CLIP-Linear: ROADMAP.md Queue 1, item 8")
     if cfg.fast_decode:
         todo.append("--fast_decode (native decoder): ROADMAP.md Queue 1, "
                     "item 2")
@@ -126,7 +127,7 @@ def check_ported(cfg: RunConfig) -> None:
                     "item 9")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
-    if cfg.model not in ("CLIP", "vit-Linear"):
+    if cfg.model not in ("CLIP", "CLIP-Linear", "vit-Linear"):
         raise ValueError(f"unknown --model {cfg.model!r}")
 
 
@@ -230,11 +231,17 @@ def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False):
             f"checkpoint and the flag value is ignored")
 
     t0 = time.perf_counter()
-    params = resolve_clip_params(cfg.clip_ckpt, cfg.ckpt_dir)
+    if cfg.model == "CLIP-Linear":
+        if not cfg.finetune_ckpt:
+            raise ValueError("--model CLIP-Linear requires --finetune_ckpt")
+        # the fine-tuned tree, whole (reference train_eval_util.py:24-25)
+        params = load_params(cfg.finetune_ckpt)
+    else:
+        params = resolve_clip_params(cfg.clip_ckpt, cfg.ckpt_dir)
     if log is not None and params is not None:
         # record WHICH weight file fed this run: the CSVs key on flags only
         log.debug(f"weights resolved in {time.perf_counter() - t0:.2f}s from "
-                  f"{file_identity(resolve_clip_weight_source(cfg.clip_ckpt, cfg.ckpt_dir))}")
+                  f"{file_identity(_clip_weight_source(cfg))}")
     if params is None:
         if not cfg.allow_random_weights:
             raise FileNotFoundError(
@@ -259,6 +266,14 @@ def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False):
                     T=cfg.T, precision=precision, device=cfg.device,
                     noise_magnitude=cfg.noise_magnitude)
     return (params if defer_put else step.put_params(params)), tokenizer, step
+
+
+def _clip_weight_source(cfg: RunConfig) -> Optional[str]:
+    """The file the CLIP towers' weights come from: ``--finetune_ckpt`` for
+    ``CLIP-Linear`` (its whole tree), else what resolution picks."""
+    if cfg.model == "CLIP-Linear":
+        return cfg.finetune_ckpt
+    return resolve_clip_weight_source(cfg.clip_ckpt, cfg.ckpt_dir)
 
 
 def _encode_prompts(step: EvalStep, params, tokenizer, class_names,
@@ -514,16 +529,13 @@ def _weight_identity(cfg: RunConfig) -> Dict[str, object]:
     numbers: swapping the checkpoint under an unchanged ``--CLIP_ckpt``
     changes every score while every flag stays equal — without this,
     ``--resume`` would serve the old model's scores."""
-    if cfg.model != "CLIP":
-        check_ported(cfg)   # CLIP-Linear: its item raises
     if cfg.model == "vit-Linear":
         from mcm_tpu_torch.models.vit import resolve_vit_weight_source
         ident: Dict[str, object] = {"weights": file_identity(
             resolve_vit_weight_source(cfg.ckpt_dir))}
     else:
-        ident = {"weights": file_identity(
-            resolve_clip_weight_source(cfg.clip_ckpt, cfg.ckpt_dir))}
-    if cfg.finetune_ckpt:
+        ident = {"weights": file_identity(_clip_weight_source(cfg))}
+    if cfg.finetune_ckpt and cfg.model != "CLIP-Linear":
         # vit-Linear: the probe-head npz overriding the classifier
         ident["finetune_ckpt"] = file_identity(cfg.finetune_ckpt)
     if cfg.model != "vit-Linear" and cfg.score != "maha":

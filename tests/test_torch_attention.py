@@ -142,11 +142,12 @@ def test_forced_bsd_bad_shapes_raise(d, heads):
 
 @pytest.mark.parametrize("impl", ["flash", "pallas_bsd_vjp"])
 def test_unported_attn_impls_raise(rng, impl):
-    """``pallas_bsd_vjp`` (trainable bsd attention) is not ported and raises
-    on an unmasked call; ``flash`` is ported: an unmasked call goes through
+    """Both are ported.  ``flash``: an unmasked call goes through
     ``flash_attention`` on the split heads (its plain version on a CPU
-    tensor, no launch).  Masked (text-tower) calls take the math path for
-    both, as in the JAX package."""
+    tensor, no launch).  ``pallas_bsd_vjp`` (trainable bsd attention): an
+    unmasked call on a CPU tensor is the math path, bit for bit, with no
+    bsd launch.  Masked (text-tower) calls take the math path for both, as
+    in the JAX package."""
     q, k, v = (torch.from_numpy(a) for a in _arrays(rng, (1, 8, 128)))
     prec = dataclasses.replace(Precision.parity(), attn_impl=impl)
     if impl == "flash":
@@ -159,9 +160,13 @@ def test_unported_attn_impls_raise(rng, impl):
         torch.testing.assert_close(got, want.transpose(1, 2).reshape(1, 8, 128),
                                    rtol=0, atol=0)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            attention.encoder_attention(q, k, v, heads=2, mask=None,
-                                        precision=prec)
+        before = attention.bsd_attention.launches
+        got = attention.encoder_attention(q, k, v, heads=2, mask=None,
+                                          precision=prec)
+        assert attention.bsd_attention.launches == before
+        want = attention.encoder_attention(q, k, v, heads=2, mask=None,
+                                           precision=Precision.parity())
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     mask = torch.zeros((1, 1, 8, 8))
     out = attention.encoder_attention(q, k, v, heads=2, mask=mask,
                                       precision=prec)

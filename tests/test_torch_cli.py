@@ -151,11 +151,24 @@ def test_cli_without_card_raises_unless_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--n_devices", "2"],
-                                   ["--model", "CLIP-Linear"],
+                                   ["--model", "CLIP-Linear",
+                                    "--model_parallel", "2"],
                                    ["--fast_decode"],
                                    ["--model_parallel", "2"]])
 def test_unported_options_raise(tmp_path, monkeypatch, flags):
+    """What is not ported raises naming its item; ``--model CLIP-Linear``
+    is ported, and with an unported option still raises for that one."""
     from mcm_tpu_torch.cli.eval_ood import main
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         main(["--device", "cpu", "--allow_random_weights"] + flags)
+
+
+def test_clip_linear_requires_finetune_ckpt(tmp_path, monkeypatch):
+    """``--model CLIP-Linear`` loads its whole tree from ``--finetune_ckpt``
+    and refuses to run without one, as the JAX runner does."""
+    from mcm_tpu_torch.cli.eval_ood import main
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(ValueError, match="requires --finetune_ckpt"):
+        main(["--device", "cpu", "--allow_random_weights", "--model",
+              "CLIP-Linear", "--root-dir", str(tmp_path)])

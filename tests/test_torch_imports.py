@@ -33,10 +33,16 @@ print(" ".join(names))
 """
 
 #: modules the guard must reach by name (the walk finds every module; these
-#: are the entry points and the modules of the vit-Linear and serving paths)
+#: are the entry points and the modules of the vit-Linear, serving and
+#: training paths)
 _NAMED = ("mcm_tpu_torch.models.vit", "mcm_tpu_torch.scores.msp",
           "mcm_tpu_torch.cli.eval_msp", "mcm_tpu_torch.cli.eval_ood",
-          "mcm_tpu_torch.serve", "mcm_tpu_torch.serve_http")
+          "mcm_tpu_torch.serve", "mcm_tpu_torch.serve_http",
+          "mcm_tpu_torch.train", "mcm_tpu_torch.train.contrastive",
+          "mcm_tpu_torch.train.linear_probe", "mcm_tpu_torch.train.checkpoint",
+          "mcm_tpu_torch.train.loop", "mcm_tpu_torch.tools.finetune_clip",
+          "mcm_tpu_torch.tools.train_linear_probe",
+          "mcm_tpu_torch.tools.train_attn_probe")
 
 
 def test_port_imports_no_jax():

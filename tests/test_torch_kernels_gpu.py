@@ -21,15 +21,24 @@ tolerance of the JAX package's ``test_fused_mlp_matches_reference``).
 The flash kernel and the tools' kernels (bsd probe modes, packed bsd) use
 the attention tolerances; the probe's ``nosoftmax``, whose outputs are
 large, is held to one bf16 ulp (bf16) or 2e-5 (fp32) of its largest |x|,
-and the packed bsd must be bit-identical to the split one.
+and the packed bsd must be bit-identical to the split one.  Training: the
+trainable attention's gradients must be bit-identical to the math path's
+(the same ops on the same inputs) and its output within one bf16 ulp of
+the bsd plain version; ``matmul_f32``'s forward with a gradient is
+bit-identical to the product without, and its input gradients are within
+bf16's rounding (2^-8 relative, plus 1e-4 of the largest value for fp32
+summation order) of an IEEE fp32 reference.
 """
+
+import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from mcm_tpu_torch.config import Precision
-from mcm_tpu_torch.ops import attention, mcm_score, mlp
+from mcm_tpu_torch.ops import attention, mcm_score, mlp, numerics
 
 pytestmark = pytest.mark.gpu
 
@@ -843,3 +852,127 @@ def test_detector_through_the_kernels_matches_the_cpu_plain_path(
         served = np.array([f.result(timeout=120)
                            for f in [mb.submit(im) for im in images]])
     np.testing.assert_allclose(served, want, rtol=5e-3, atol=5e-4)
+
+
+# -- training: the trainable attention and matmul_f32's gradient -------------
+
+@pytest.mark.parametrize("b", [2, 8])
+def test_trainable_attention_runs_bsd_and_has_the_math_gradient(cuda, b):
+    """``pallas_bsd_vjp``: the forward is one bsd launch (bit-equal to the
+    kernel's output); the q/k/v gradients are bit-equal to
+    ``torch.autograd.grad`` of the math path on the same inputs and
+    upstream gradient, and the backward launches no kernel."""
+    q, k, v = (t.requires_grad_()
+               for t in _qkv((b, 197, 768), torch.bfloat16, cuda))
+    g = _qkv((b, 197, 768), torch.bfloat16, cuda, seed=1)[0]
+    prec = dataclasses.replace(Precision.fast(), attn_impl="pallas_bsd_vjp")
+    before = attention.bsd_attention.launches
+    out = attention.encoder_attention(q, k, v, heads=12, mask=None,
+                                      precision=prec)
+    torch.cuda.synchronize()
+    assert attention.bsd_attention.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert attention.bsd_attention.launches == before + 1
+    kernel = attention.bsd_attention(q.detach(), k.detach(), v.detach(), 12)
+    torch.testing.assert_close(out, kernel, rtol=0, atol=0)
+    math_p = dataclasses.replace(prec, attn_impl="xla")
+    ref = attention.encoder_attention(q, k, v, heads=12, mask=None,
+                                      precision=math_p)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    # the forward is the kernel's: within one bf16 ulp of the plain
+    # version's largest |x| (one output rounding the two may take apart)
+    plain = attention.bsd_attention_reference(q.detach(), k.detach(),
+                                              v.detach(), 12).float()
+    ulp = 2.0 ** (math.floor(math.log2(plain.abs().max().item())) - 7)
+    assert (out.float() - plain).abs().max().item() <= ulp
+
+
+def _mm_inputs(cuda, batched):
+    rng = np.random.default_rng(4)
+    shape_a, shape_b = (((4, 197, 64), (4, 64, 197)) if batched
+                        else ((4, 197, 768), (768, 512)))
+
+    def bf16(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+
+    a, b = bf16(shape_a), bf16(shape_b)
+    # the cotangent of an fp32 product the towers round to bf16 next:
+    # bf16 values in fp32
+    g = bf16((*shape_a[:-1], shape_b[-1])).float()
+    return a, b, g
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_matmul_f32_forward_with_gradient_is_todays_product(cuda, batched):
+    a, b, _ = _mm_inputs(cuda, batched)
+    want = numerics._mm_out_f32(a, b)
+    got = numerics.matmul_f32(a.requires_grad_(), b.requires_grad_())
+    assert got.grad_fn is not None and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_matmul_f32_gradients_match_fp32(cuda, batched):
+    """Input gradients in the inputs' dtype, within bf16's rounding
+    (2^-8 relative) of an IEEE fp32 reference on the same values."""
+    from mcm_tpu_torch.scores.clip_scores import ieee_fp32_matmul
+
+    a, b, g = _mm_inputs(cuda, batched)
+    a.requires_grad_()
+    b.requires_grad_()
+    ga, gb = torch.autograd.grad(numerics.matmul_f32(a, b), (a, b), g)
+    af, bf = (t.detach().float().requires_grad_() for t in (a, b))
+    with ieee_fp32_matmul():
+        want_a, want_b = torch.autograd.grad(af @ bf, (af, bf), g)
+    for got, want in ((ga, want_a), (gb, want_b)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want, rtol=2 ** -8,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+def _tiny_bsd_clip():
+    from mcm_tpu_torch.config import CLIPConfig, TextConfig, VisionConfig
+    # width 128, 2 heads (Dh = 64): shapes the bsd kernel takes
+    return CLIPConfig(
+        name="tiny", vision=VisionConfig(image_size=32, patch_size=8,
+                                         width=128, layers=2, heads=2,
+                                         projection_dim=32),
+        text=TextConfig(vocab_size=128, context_length=16, width=128,
+                        layers=2, heads=2, projection_dim=32))
+
+
+@pytest.mark.parametrize("attn,remat,bsd_per_step", [
+    ("xla", True, 0), ("pallas_bsd_vjp", True, 4),
+    ("pallas_bsd_vjp", False, 2)])
+def test_bf16_train_step_runs_on_the_card(cuda, attn, remat, bsd_per_step):
+    """A fast-mode (bf16) step differentiates every product on the card;
+    the trainable route launches bsd once a vision layer, twice under
+    remat (the recompute), never in the masked text tower."""
+    from mcm_tpu_torch.models.init import init_clip
+    from mcm_tpu_torch.train import make_train_step
+
+    cfg = _tiny_bsd_clip()
+    prec = dataclasses.replace(Precision.fast(), attn_impl=attn)
+    init_state, step = make_train_step(cfg, precision=prec, device=cuda,
+                                       remat=remat)
+    state = init_state(init_clip(0, cfg))
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, size=(8, 32, 32, 3), dtype=np.uint8)
+    ids = rng.integers(1, 100, size=(8, 16)).astype(np.int32)
+    ids[:, -1] = 127
+    mask = np.ones_like(ids)
+    losses = []
+    before = attention.bsd_attention.launches
+    for _ in range(5):
+        state, loss = step(state, images, ids, mask)
+        losses.append(float(loss))
+    assert attention.bsd_attention.launches == before + 5 * bsd_per_step
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert state.step == 5
+    for p in state.params.parameters():
+        assert p.dtype == torch.float32 and p.grad is not None
