@@ -24,7 +24,17 @@
    each bsd probe mode is held against its plain version; the packed bsd
    launch (``bsd_fused``) must be bit-identical to the split one; the MCM
    score also runs C = 16000, B = 1 and 7, D = 768 and a zero (NaN) row.
-3. Slice phase: writes the port's synthetic ViT-B/16 HF state dict (seed
+3. Decode phase: prints the decode route (``native_info()``: the native
+   libjpeg decoder and the libjpeg it linked, Pillow's bundled copy on a
+   host without a system libjpeg) and fails if it is PIL; holds the native
+   decoder against PIL on the bench's 500x375 q87 JPEGs (256 of them, the
+   JAX package's bounds: exact mode within 2 LSB and a mean under 0.5 an
+   image, fast mode a mean under 4); plants a PNG and a truncated JPEG
+   among six JPEGs and counts the rows that fell back to PIL (exactly 2);
+   prints the ``DataPipeline`` decode rates of PIL, native and native-fast
+   at the default thread count, in turns (PIL, native, fast, fast, native,
+   PIL), with ``os.cpu_count()`` and the card line.
+   Slice phase: writes the port's synthetic ViT-B/16 HF state dict (seed
    0) as a snapshot, ``<ckpt>/clip-vit-base-patch16/pytorch_model.bin``,
    then runs the eval CLI (``mcm_tpu_torch.cli.eval_ood``) at the full
    width and depth of ViT-B/16 with ``--ckpt_dir <ckpt>`` on a synthetic
@@ -34,8 +44,13 @@
    fails the phase).  Prints the seconds of the snapshot and of the
    conversion; asserts that every kernel of the path was launched (bsd: 12
    per image batch; mcm: 1 per image batch), that every score is finite
-   and that the CSV was written; then scores one batch through the math
-   paths and bounds the difference.  Then, on the weights that run
+   and that the CSV was written and that the log names the native
+   decoder; then scores one batch through the math paths and bounds the
+   difference; then the same command again on each decode route in turn,
+   under ``MCM_TPU_DISABLE_NATIVE=1`` (PIL), native and with
+   ``--fast_decode``, each with the same launch counts and its route in
+   the log, the native scores within the slice's score tolerance of the
+   PIL run's.  Then, on the weights that run
    converted, the rest of the CLI, each run with every launch count set
    to 0 just before it and read just after:
    ``--score maha`` on an ImageNet10 tree (800 train images, so N > D and
@@ -70,8 +85,12 @@
    launches equal to the batches dispatched; a Mahalanobis detector (the
    maha run's templates) classifies more images than its largest bucket
    with ``score_images``'s scores, and ``close()`` answers what the batcher
-   holds.  Prints p50 / p99 single-request latency and images/s, each with
-   the card's name and power limit.
+   holds.  Request bodies decode natively; the host's decode ms an image
+   natively, through PIL and on the bulk pool are printed beside the p50 /
+   p99 single-request latency and images/s, each with the card's name and
+   power limit.  Then ``tools.serve_soak`` and ``tools.http_soak`` at their
+   own sizes (a few hundred requests each; 12 bsd per MCM launch and no
+   other kernel), their p50 / p99 and rates printed with the card line.
    Training, after the maha run, on its ImageNet10 tree and the converted
    weights: (a) ``mcm_tpu_torch.tools.finetune_clip``, one epoch of ``-b
    64`` over the 800 train images (12 steps on JAX's default route, the
@@ -95,15 +114,18 @@
    of the knob's attention kernel per image batch (no bsd, one mcm), and
    holds each setting's features on one batch against the default path's.
    Then the bench once with default knobs at B = 512 with the
-   decode-included pass, and its row.
+   decode-included pass (native decode), and its row, and once more with
+   that pass through PIL (``MCM_TPU_DISABLE_NATIVE=1``): both e2e rates,
+   decode alone and the host→device ceiling printed with the card line.
 5. Tools phase: the three attention tools (``mcm_tpu_torch.tools``
    ``bsd_probe``, ``qkv_probe``, ``attn_shootout``) in-process at their
    own shapes (B = 512) with a shorter chain: no row may fail, and every
    kernel they reach must be launched.
 6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line (its
-   ``launches``: bsd and MCM summed over the slice phase's CLI, training
-   and serving runs, the knob kernels over their bench runs, the tools' kernels over
-   their tool's run), the card line again and, last,
+   ``launches``: bsd and MCM summed over the slice phase's CLI runs (the
+   decode-route runs included), training, serving and soak runs, the knob
+   kernels over their bench runs, the tools' kernels over their tool's
+   run), the card line again and, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without a card.  Imports nothing of JAX
@@ -160,6 +182,12 @@ ODIN_ZERO_REL_TOL = 1e-5
 # serving: the JAX package's bucket tolerance (tests/test_serve.py), a row
 # scored in a batch of another size sums in another order
 SERVE_RTOL, SERVE_ATOL = 5e-3, 5e-4
+# decode: the native decoder against PIL on the bench's JPEGs, per image,
+# the JAX package's bounds (tests/test_native.py): exact mode within 2 LSB
+# and a mean under 0.5; fast mode (DCT-prescaled, fast IDCT) a mean under 4
+DECODE_MAX_LSB, DECODE_MEAN_LSB, FAST_MEAN_LSB = 2, 0.5, 4.0
+DECODE_CHECK_IMAGES = 256
+DISABLE_NATIVE = "MCM_TPU_DISABLE_NATIVE"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -568,6 +596,111 @@ def kernel_phase() -> dict:
     return main
 
 
+# -- 3a. decode phase ------------------------------------------------------------
+
+def _decode_rate(ds, **kw) -> float:
+    """img/s of ``DataPipeline`` over ``ds`` at its default thread count,
+    decode alone (no device work)."""
+    from mcm_tpu_torch.data import DataPipeline
+    pipe = DataPipeline(ds, 512, prefetch=3, **kw)
+    n = 0
+    t = time.perf_counter()
+    for b in pipe:
+        n += b.valid
+    return n / (time.perf_counter() - t)
+
+
+def _planted_tree(root: str, jpegs) -> list:
+    """Six of the bench's JPEGs, a PNG and a JPEG whose scan is cut at half
+    and closed by an EOI marker (libjpeg's premature-end warning fails the
+    native decode; PIL fills the rest grey): the two rows that must fall
+    back to PIL."""
+    import shutil
+
+    from PIL import Image
+    os.makedirs(root)
+    paths = []
+    for i, p in enumerate(jpegs[:6]):
+        paths.append(os.path.join(root, f"{i}.jpg"))
+        shutil.copy(p, paths[-1])
+    png = os.path.join(root, "planted.png")
+    Image.open(jpegs[6]).save(png)
+    with open(jpegs[7], "rb") as f:
+        data = f.read()
+    cut = os.path.join(root, "planted_truncated.jpg")
+    with open(cut, "wb") as f:
+        f.write(data[:len(data) // 2] + b"\xff\xd9")
+    return paths[:3] + [png] + paths[3:] + [cut]
+
+
+def decode_phase(work: str) -> None:
+    """The native decoder on the card's host: its route (the phase fails on
+    PIL), its pixels against PIL's on the bench's 500x375 q87 JPEGs in
+    exact and fast mode, the planted fallback rows, and the decode rates
+    of PIL, native and native-fast in turns."""
+    from mcm_tpu_torch import bench
+    from mcm_tpu_torch.data import DataPipeline
+    from mcm_tpu_torch.data.transforms import load_image_uint8
+    from mcm_tpu_torch.runtime import native
+
+    info = native.native_info()
+    print(f"decoder route: {json.dumps(info)}", flush=True)
+    check(info["available"], f"the native decoder is not taken on this "
+          f"host: {info['reason']}")
+    t = time.perf_counter()
+    paths = bench.ensure_jpeg_tree(bench.E2E_IMAGES)
+    tree_s = time.perf_counter() - t
+
+    held = paths[:DECODE_CHECK_IMAGES]
+    exact, st_exact = native.decode_batch(held, 224)
+    fast, st_fast = native.decode_batch(held, 224, fast=True)
+    check(not st_exact.any() and not st_fast.any(),
+          f"native statuses {st_exact.tolist()} / {st_fast.tolist()}")
+    worst = {"max_lsb": 0, "mean_lsb": 0.0, "fast_mean_lsb": 0.0}
+    for i, p in enumerate(held):
+        ref = load_image_uint8(p, 224).astype(np.int32)
+        d = np.abs(exact[i].astype(np.int32) - ref)
+        worst["max_lsb"] = max(worst["max_lsb"], int(d.max()))
+        worst["mean_lsb"] = max(worst["mean_lsb"], float(d.mean()))
+        worst["fast_mean_lsb"] = max(worst["fast_mean_lsb"], float(
+            np.abs(fast[i].astype(np.int32) - ref).mean()))
+    check(worst["max_lsb"] <= DECODE_MAX_LSB
+          and worst["mean_lsb"] < DECODE_MEAN_LSB,
+          f"native vs PIL, exact: {worst}")
+    check(worst["fast_mean_lsb"] < FAST_MEAN_LSB,
+          f"native vs PIL, fast: {worst}")
+
+    planted = _planted_tree(os.path.join(work, "decode_fallback"), paths)
+    pipe = DataPipeline([(p, 0) for p in planted], len(planted),
+                        num_workers=4)
+    batch = next(iter(pipe))
+    check(pipe.pil_rows == 2 and batch.valid == len(planted),
+          f"{pipe.pil_rows} rows fell back to PIL, want 2")
+    print(f"decode fallback: {pipe.pil_rows} of {len(planted)} rows fell "
+          f"back to PIL (a PNG and a truncated JPEG)", flush=True)
+
+    ds = [(p, 0) for p in paths]
+    routes = {"pil": {"use_native": False}, "native": {},
+              "native_fast": {"fast_decode": True}}
+    rates = {name: [] for name in routes}
+    for name in list(routes) + list(routes)[::-1]:
+        rates[name].append(_decode_rate(ds, **routes[name]))
+    card = card_line()
+    threads = native.default_decode_threads()
+    for name, r in rates.items():
+        print(f"decode {name}: {np.mean(r):.1f} img/s (passes "
+              f"{', '.join(f'{x:.1f}' for x in r)}; {threads} threads, "
+              f"os.cpu_count() {os.cpu_count()}; {card})", flush=True)
+    emit({"phase": "decode", "route": info, "tree": bench.E2E_TREE,
+          "images": len(paths), "tree_write_s": tree_s,
+          "held_images": len(held), "native_vs_pil": worst,
+          "bounds": {"max_lsb": DECODE_MAX_LSB, "mean_lsb": DECODE_MEAN_LSB,
+                     "fast_mean_lsb": FAST_MEAN_LSB},
+          "fallback_rows": pipe.pil_rows, "planted_rows": len(planted),
+          "decode_threads": threads, "cpu_count": os.cpu_count(),
+          "img_per_s": rates, "card": card})
+
+
 # -- 3. slice phase --------------------------------------------------------------
 
 def _write_images(base: str, classes, n: int, rng) -> None:
@@ -749,15 +882,85 @@ def slice_phase(work: str) -> dict:
            "cli_images_per_s_incl_startup": n_scores / run["cli_wall_s"],
            "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
            "csv": open(csv).read().strip().splitlines()}
+    route = re.search(r" decoder: (.*)$", log, re.M)
+    check(route is not None and route.group(1).startswith("native ("),
+          f"the CLI run did not decode natively: "
+          f"{route.group(0) if route else None}")
+    out["decoder"] = route.group(1)
+    print(f"chip_smoke ({route.group(1)}): loop {_loop_rate(log)} img/s "
+          f"({card_line()})", flush=True)
     out.update(math_path_check(data, ckpt))
+    routes, route_launches = decode_route_runs(work, data, ckpt, n_batches)
+    out.update(routes)
     emit(out)
-    path = {"bsd_attention": launches["bsd_attention"],
-            "mcm_score": launches["mcm_score"]}
+    path = {"bsd_attention": launches["bsd_attention"]
+            + route_launches["bsd_attention"],
+            "mcm_score": launches["mcm_score"] + route_launches["mcm_score"]}
     for fn in (maha_run, train_runs, odin_run, accuracy_resume_runs,
-               vit_runs, serve_run):
+               vit_runs, serve_run, soak_runs):
         for k, v in fn(work, data, ckpt).items():
             path[k] += v
     return path
+
+
+def decode_route_runs(work: str, data: str, ckpt: str,
+                      n_batches: int) -> tuple:
+    """The main path's CLI command again, warm, on each decode route in
+    turn: under ``MCM_TPU_DISABLE_NATIVE=1`` (PIL), native, and native with
+    ``--fast_decode``; each with the main run's launch counts and its route
+    in the log; the native scores held within the slice's score tolerance
+    of the PIL run's."""
+    want = {"bsd_attention": 12 * n_batches, "mcm_score": n_batches}
+    runs = {}
+    total = {"bsd_attention": 0, "mcm_score": 0}
+    for name, flags, env, prefix in [
+            ("chip_smoke_pil", [], "1", "PIL ("),
+            ("chip_smoke_native", [], None, "native ("),
+            ("chip_smoke_fast", ["--fast_decode"], None, "native (")]:
+        saved = os.environ.pop(DISABLE_NATIVE, None)
+        if env:
+            os.environ[DISABLE_NATIVE] = env
+        try:
+            run = cli_run(work, _cli_argv(data, ckpt, name, "--in_dataset",
+                                          "ImageNet", "--score", "MCM", "-b",
+                                          str(BATCH), *flags))
+        finally:
+            os.environ.pop(DISABLE_NATIVE, None)
+            if saved is not None:
+                os.environ[DISABLE_NATIVE] = saved
+        _check_only(run["launches"], want, f"{name} over {n_batches} image "
+                    f"batches")
+        for k in total:
+            total[k] += run["launches"][k]
+        log_dir = _log_dir(work, "ImageNet", "MCM", name)
+        _check_scores(log_dir, dict([("ID_ImageNet", N_ID)]
+                                    + [(o, N_OOD) for o in OOD_SETS]))
+        log = _read_log(log_dir)
+        route = re.search(r" decoder: (.*)$", log, re.M)
+        check(route is not None and route.group(1).startswith(prefix)
+              and route.group(1).endswith(", fast") == bool(flags),
+              f"{name}: decoder line {route.group(0) if route else None}")
+        runs[name] = {"decoder": route.group(1), "launches": run["launches"],
+                      "loop_images_per_s": _loop_rate(log),
+                      "cli_wall_s": run["cli_wall_s"]}
+    deltas = {}
+    for ds in ["ID_ImageNet", *OOD_SETS]:
+        s = {n: np.load(os.path.join(_log_dir(work, "ImageNet", "MCM", n),
+                                     f"{ds}_scores.npy"))
+             for n in ("chip_smoke", *runs)}
+        tol = SCORE_REL_TOL * float(np.abs(s["chip_smoke_pil"]).max())
+        d = float(np.abs(s["chip_smoke"] - s["chip_smoke_pil"]).max())
+        check(d <= tol, f"{ds}: native scores {d} from PIL's (tol {tol})")
+        deltas[ds] = {"native_vs_pil": d, "tol": tol,
+                      "fast_vs_native": float(np.abs(
+                          s["chip_smoke_fast"] - s["chip_smoke"]).max()),
+                      "native_warm_vs_main": float(np.abs(
+                          s["chip_smoke_native"] - s["chip_smoke"]).max())}
+    card = card_line()
+    for name, r in runs.items():
+        print(f"{name} ({r['decoder']}): loop {r['loop_images_per_s']} img/s "
+              f"({card})", flush=True)
+    return {"decode_route_runs": runs, "score_deltas_by_route": deltas}, total
 
 
 def maha_run(work: str, data: str, ckpt: str) -> dict:
@@ -1164,7 +1367,9 @@ def serve_run(work: str, data: str, ckpt: str) -> dict:
 
     from mcm_tpu_torch.data.labels import get_test_labels
     from mcm_tpu_torch.serve import OODDetector
-    from mcm_tpu_torch.serve_http import OODServer, decode_image_bytes
+    from mcm_tpu_torch.serve_http import (OODServer, _pil_decode,
+                                          decode_image_bytes,
+                                          decode_images_bulk)
 
     t = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
@@ -1191,11 +1396,21 @@ def serve_run(work: str, data: str, ckpt: str) -> dict:
     for p in paths[:n]:
         with open(p, "rb") as f:
             blobs.append(f.read())
-    # where a request's time can go: PIL decode on the host (one thread),
-    # and the card's time for one scoring batch of each bucket
+    # where a request's time can go: decode on the host (natively, as the
+    # server decodes a single image, one at a time; PIL alone; a bulk
+    # request on the native pool), and the card's time for one scoring
+    # batch of each bucket
     t = time.perf_counter()
     images = np.stack([decode_image_bytes(b) for b in blobs])
     decode_ms = (time.perf_counter() - t) * 1e3 / n
+    t = time.perf_counter()
+    for b in blobs:
+        _pil_decode(b, 224)
+    pil_decode_ms = (time.perf_counter() - t) * 1e3 / n
+    t = time.perf_counter()
+    check(np.array_equal(np.stack(decode_images_bulk(blobs)), images),
+          "the bulk decode differs from the single-image decode")
+    bulk_decode_ms = (time.perf_counter() - t) * 1e3 / n
     bucket_ms = {}
     for b in SERVE_BUCKETS:
         zero = det.step.put_batch(np.zeros((b, 224, 224, 3), np.uint8))
@@ -1302,10 +1517,15 @@ def serve_run(work: str, data: str, ckpt: str) -> dict:
     print(f"serving p99 single-image latency {p99 * 1e3:.3f} ms ({card})")
     print(f"serving {n / wall:.1f} images/s over {len(replies)} concurrent "
           f"requests ({card})", flush=True)
+    print(f"serving host decode ms an image: native {decode_ms:.3f}, PIL "
+          f"{pil_decode_ms:.3f}, native bulk {bulk_decode_ms:.3f} ({card})",
+          flush=True)
     emit({"phase": "serve", "model": "ViT-B/16", "classes": 1000,
           "buckets": list(SERVE_BUCKETS), "build_s": build_s,
           "warmup_s": warmup_s, "requests": len(replies), "images": n,
           "host_decode_ms_per_image": decode_ms,
+          "host_pil_decode_ms_per_image": pil_decode_ms,
+          "host_bulk_decode_ms_per_image": bulk_decode_ms,
           "device_score_ms_by_bucket": bucket_ms,
           "server_side_latency_s_by_quantile": server_q,
           "profiled_round": profiled,
@@ -1322,6 +1542,50 @@ def serve_run(work: str, data: str, ckpt: str) -> dict:
               np.abs(maha_cls - maha).max())})
     return {"bsd_attention": launches["bsd_attention"],
             "mcm_score": launches["mcm_score"]}
+
+
+def soak_runs(work: str, data: str, ckpt: str) -> dict:
+    """``tools.serve_soak`` and ``tools.http_soak`` at their own sizes on
+    the card (CLIP ViT-B/16, random weights, 1000 classes; a few hundred
+    requests each, request bodies decoded natively), each launch count set
+    to 0 just before and read just after: 12 bsd per MCM launch and no
+    other kernel."""
+    from mcm_tpu_torch.tools import http_soak, serve_soak
+    counters = _all_counters()
+    total = {"bsd_attention": 0, "mcm_score": 0}
+    rows = {}
+    for tool in (serve_soak, http_soak):
+        name = tool.__name__.rsplit(".", 1)[1]
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        row = tool.main("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in counters.items()}
+        m = launches["mcm_score"]
+        check(m > 0, f"{name}: no MCM launch")
+        _check_only(launches, {"bsd_attention": 12 * m, "mcm_score": m}, name)
+        check(row["decoder"]["available"], f"{name} decoded through PIL")
+        for k in total:
+            total[k] += launches[k]
+        rows[name] = dict(row, launches=launches, wall_s=wall)
+    card = card_line()
+    s, h = rows["serve_soak"], rows["http_soak"]
+    print(f"serve_soak: {s['concurrent_requests']} concurrent requests "
+          f"{s['concurrent_req_per_s']:.1f} img/s, p50 "
+          f"{s['concurrent_p50_ms']:.3f} ms, p99 {s['concurrent_p99_ms']:.3f} "
+          f"ms; files {s['files_img_per_s']:.1f} img/s ({card})", flush=True)
+    for phase, n_key, rate_key in [
+            ("serial", "serial_requests", "serial_req_per_sec"),
+            ("burst", "burst_requests", "burst_req_per_sec"),
+            ("bulk", "bulk_requests", "bulk_json_img_per_sec")]:
+        print(f"http_soak {phase}: {h[n_key]} requests {h[rate_key]:.1f} "
+              f"{'img' if phase == 'bulk' else 'req'}/s, p50 "
+              f"{h[phase + '_p50_ms']:.3f} ms, p99 {h[phase + '_p99_ms']:.3f} "
+              f"ms ({card})", flush=True)
+    emit({"phase": "serve_soaks", "card": card, "runs": rows})
+    return total
 
 
 def _one_batch(data: str, ckpt: str, **over) -> tuple:
@@ -1695,7 +1959,8 @@ def train_runs(work: str, data: str, ckpt: str) -> dict:
 # -- 4. bench phase --------------------------------------------------------------
 
 _BENCH_ENV = ("MCM_BENCH_CKPT", "MCM_BENCH_BATCH", "MCM_BENCH_ATTN",
-              "MCM_BENCH_MLP", "MCM_BENCH_E2E", "MCM_BENCH_SCALES")
+              "MCM_BENCH_MLP", "MCM_BENCH_E2E", "MCM_BENCH_SCALES",
+              DISABLE_NATIVE)
 
 
 def _counters() -> dict:
@@ -1804,6 +2069,26 @@ def bench_phase() -> dict:
         "e2e_transfer_ceiling_img_per_sec")),
         f"default bench row lacks a rate: {row}")
     emit({"phase": "bench_default", "launches": launches, "row": row})
+
+    # the same bench with its e2e pass decoding through PIL, in this call
+    bench.WARMUP, bench.WINDOWS, bench.ITERS_PER_WINDOW = 1, 1, 2
+    pil_row, pil_launches = _run_bench({"MCM_BENCH_CKPT": "ViT-B/16",
+                                        "MCM_BENCH_BATCH": str(bench.BATCH),
+                                        "MCM_BENCH_E2E": "1",
+                                        "MCM_BENCH_SCALES": "0",
+                                        DISABLE_NATIVE: "1"})
+    check(row["e2e_decoder"] == "native" and pil_row["e2e_decoder"] == "PIL",
+          f"e2e decoders {row['e2e_decoder']} / {pil_row['e2e_decoder']}")
+    check(pil_launches["bsd_attention"] == layers * pil_launches["mcm_score"]
+          > 0, f"PIL bench launches {pil_launches}")
+    card = card_line()
+    for r in (row, pil_row):
+        print(f"bench e2e ({r['e2e_decoder']}): {r['e2e_img_per_sec']} img/s; "
+              f"decode alone {r['e2e_decode_img_per_sec']}, host->device "
+              f"ceiling {r['e2e_transfer_ceiling_img_per_sec']} ({card})",
+              flush=True)
+    emit({"phase": "bench_e2e_pil", "launches": pil_launches,
+          "row": pil_row})
     return path_launches
 
 
@@ -1882,6 +2167,9 @@ def main() -> int:
     walls["kernel"] = time.perf_counter() - t
     t = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="mcm_chip_smoke_") as work:
+        decode_phase(work)
+        walls["decode"] = time.perf_counter() - t
+        t = time.perf_counter()
         launches = slice_phase(work)
     walls["slice"] = time.perf_counter() - t
     t = time.perf_counter()

@@ -22,7 +22,10 @@ Prints ONE JSON line; headline keys:
                      the e2e number decomposed: host JPEG decode alone, and
                      the same loop with decode removed (host→device copy
                      and the device step); ``e2e_bound_img_per_sec`` is the
-                     smaller of the two
+                     smaller of the two; ``e2e_decoder`` names the decode
+                     route, ``native`` (the C++ libjpeg decoder, the
+                     pipeline's default) or ``PIL``
+                     (``MCM_TPU_DISABLE_NATIVE=1``, or no native route)
   scales             {ckpt, img_per_sec, mfu_pct} rows for ViT-B/32 and
                      ViT-L/14 (opt out: MCM_BENCH_SCALES=0)
   contending_procs   per-segment counts of other python processes that
@@ -330,9 +333,11 @@ def main(device="cuda") -> dict:
     mfu = _mfu_pct(cfg, device_rate)
 
     # decode-included end-to-end, decomposed into decode / transfer / device
-    e2e = ceiling = decode_rate = bound = None
+    e2e = ceiling = decode_rate = bound = decoder = None
     if os.environ.get("MCM_BENCH_E2E", "1") != "0":
         from mcm_tpu_torch.data import DataPipeline
+        from mcm_tpu_torch.runtime.native import native_available
+        decoder = "native" if native_available() else "PIL"
         paths = ensure_jpeg_tree(E2E_IMAGES)
         ds = [(p, 0) for p in paths]
         size = cfg.vision.image_size
@@ -433,6 +438,7 @@ def main(device="cuda") -> dict:
         "e2e_decode_img_per_sec": decode_rate,
         "e2e_transfer_ceiling_img_per_sec": ceiling,
         "e2e_bound_img_per_sec": bound,
+        "e2e_decoder": decoder,
         "scales": scales,
         "window_img_per_sec": [round(w, 1) for w in windows],
         "window_spread_pct": round(spread, 1),

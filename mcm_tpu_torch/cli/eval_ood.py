@@ -22,10 +22,12 @@ Chrome trace of the ID pass).  ``--model CLIP-Linear`` runs the CLIP
 path on the whole fine-tuned tree in ``--finetune_ckpt``
 (``python -m mcm_tpu_torch.tools.finetune_clip`` writes one).  ``--model
 vit-Linear`` scores the supervised ViT's classifier logits (weights under
-``--ckpt_dir``, a probe head through ``--finetune_ckpt``).  Options whose
-code is not ported yet (``--fast_decode``, ``--model_parallel > 1``,
-``--n_devices > 1``) raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+``--ckpt_dir``, a probe head through ``--finetune_ckpt``).  Images decode
+through the native libjpeg decoder (``MCM_TPU_DISABLE_NATIVE=1``: PIL);
+``--fast_decode`` (its DCT-prescaled mode) raises where the native decoder
+is unavailable.  Options whose code is not ported yet
+(``--model_parallel > 1``, ``--n_devices > 1``) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 import argparse

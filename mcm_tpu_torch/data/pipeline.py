@@ -1,11 +1,13 @@
-"""Host data pipeline: threaded PIL decode + prefetch feeding static batches.
+"""Host data pipeline: native batch decode + prefetch feeding static batches.
 
 Replaces the reference's ``torch.utils.data.DataLoader(num_workers=4,
-pin_memory=True)`` (``utils/train_eval_util.py:49,96``).  Decode runs on
-a thread pool through PIL (the C++ libjpeg decoder of the JAX package is
-not ported yet: ``ROADMAP.md`` Queue 1, item 2); batches are prepared
-ahead of the consumer on a bounded queue so host decode overlaps device
-compute.
+pin_memory=True)`` (``utils/train_eval_util.py:49,96``).  Decode runs
+through the C++ libjpeg decoder (:mod:`mcm_tpu_torch.runtime.native`:
+GIL-free thread pool, PIL-geometry triangle resample, optional
+DCT-prescaled decode) straight into the batch buffer, with a per-image PIL
+fallback for the rows it refuses (non-JPEG, truncated, CMYK files) and for
+every row when the native route is unavailable; batches are prepared ahead
+of the consumer on a bounded queue so host decode overlaps device compute.
 
 Batches are **uint8 HWC with static shapes**: the final partial batch is
 padded (``valid`` marks real rows); padding rows are dropped after score
@@ -16,7 +18,6 @@ multi-host stripes).
 
 from __future__ import annotations
 
-import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -25,11 +26,7 @@ from typing import Iterator, NamedTuple, Optional, Sequence
 import numpy as np
 
 from mcm_tpu_torch.data.transforms import load_image_uint8
-
-
-def default_decode_threads() -> int:
-    """Decode-pool width when the caller doesn't pin one."""
-    return min(32, os.cpu_count() or 4)
+from mcm_tpu_torch.runtime import native
 
 
 class Batch(NamedTuple):
@@ -48,17 +45,34 @@ class DataPipeline:
     image_size:     square output resolution (shorter-side resize + crop).
     num_workers:    decode threads (default: min(32, cpu count)).
     prefetch:       batches decoded ahead of the consumer.
+    use_native:     the C++ libjpeg decoder (PIL for every row when the
+                    native route is unavailable).
+    fast_decode:    DCT-prescaled native decode (smallest M/8 scale keeping
+                    the shorter side ≥ target, fast IDCT; ~1-4 LSB from
+                    PIL on natural images: a throughput mode, NOT for
+                    parity runs).  Raises without the native route.
     """
 
     def __init__(self, dataset, batch_size: int, image_size: int = 224,
                  num_workers: Optional[int] = None, prefetch: int = 2,
-                 drop_remainder: bool = False):
+                 drop_remainder: bool = False, use_native: bool = True,
+                 fast_decode: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.image_size = image_size
-        self.num_workers = num_workers or default_decode_threads()
+        self.num_workers = num_workers or native.default_decode_threads()
         self.prefetch = max(1, prefetch)
         self.drop_remainder = drop_remainder
+        self.use_native = use_native and native.native_available()
+        if fast_decode and not self.use_native:
+            raise RuntimeError(
+                "fast_decode needs the native decoder, which is off here: "
+                + ("use_native=False" if not use_native
+                   else str(native.native_info()["reason"])))
+        self.fast_decode = fast_decode
+        #: rows decoded by PIL: those the native decoder refused (PNG,
+        #: truncated, CMYK files), or every row without the native route
+        self.pil_rows = 0
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -84,11 +98,22 @@ class DataPipeline:
         # np.empty: every real row is written below and the padding tail is
         # replicated from the last real row
         images = np.empty((self.batch_size, size, size, 3), dtype=np.uint8)
-        decoded = (pool.map(lambda p: load_image_uint8(p, size), paths)
-                   if pool is not None else
-                   (load_image_uint8(p, size) for p in paths))
-        for i, img in enumerate(decoded):
+        todo = list(range(len(paths)))
+        if self.use_native:
+            # straight into the batch buffer; failed rows are overwritten
+            # by the PIL fallback below
+            out, status = native.decode_batch(paths, size,
+                                              n_threads=self.num_workers,
+                                              fast=self.fast_decode,
+                                              out=images[:len(paths)])
+            if out is not None:   # None: the route was disabled since
+                todo = [i for i in todo if status[i] != 0]
+        decoded = (pool.map(lambda i: load_image_uint8(paths[i], size), todo)
+                   if pool is not None and len(todo) > 1 else
+                   (load_image_uint8(paths[i], size) for i in todo))
+        for i, img in zip(todo, decoded):
             images[i] = img
+        self.pil_rows += len(todo)
         valid = hi - lo
         images[valid:] = images[valid - 1]
         labels[valid:] = labels[valid - 1]

@@ -6,7 +6,9 @@ plots → CSV, on one CUDA device:
 
 * text prompts tokenized + encoded once per ID dataset (the reference
   re-encodes them every batch, ``detection_util.py:228-231``);
-* host decode threads prefetch ahead; uint8 batches go up through pinned
+* the native libjpeg decoder (PIL for the rows it refuses, or every row
+  where the route is unavailable: the log's ``decoder:`` line names it)
+  prefetches ahead on host threads; uint8 batches go up through pinned
   memory without blocking; kernels are queued asynchronously and each
   batch's scores are read back one batch behind, so decode, H2D, compute
   and D2H overlap;
@@ -50,6 +52,7 @@ from mcm_tpu_torch.models.convert import (file_identity, load_params,
                                           resolve_clip_weight_source)
 from mcm_tpu_torch.models.init import init_clip
 from mcm_tpu_torch.parallel import EvalStep, VitLinearStep
+from mcm_tpu_torch.runtime import native
 from mcm_tpu_torch.scores.clip_scores import (_scores_from_logits_host,
                                               compute_scores_host, l2_normalize)
 from mcm_tpu_torch.scores.mahalanobis import (estimate_mean_precision,
@@ -119,9 +122,6 @@ class RunConfig:
 def check_ported(cfg: RunConfig) -> None:
     """Raise for every option of the JAX runner this slice does not port."""
     todo = []
-    if cfg.fast_decode:
-        todo.append("--fast_decode (native decoder): ROADMAP.md Queue 1, "
-                    "item 2")
     if cfg.model_parallel > 1 or (cfg.n_devices or 1) > 1:
         todo.append("--model_parallel / --n_devices > 1: ROADMAP.md Queue 1, "
                     "item 9")
@@ -323,7 +323,21 @@ def _make_pipe(dataset, cfg: RunConfig,
                drop_remainder: bool = False) -> DataPipeline:
     return DataPipeline(dataset, cfg.batch_size, image_size=cfg.image_size,
                         num_workers=cfg.num_workers, prefetch=cfg.prefetch,
-                        drop_remainder=drop_remainder)
+                        drop_remainder=drop_remainder,
+                        fast_decode=cfg.fast_decode)
+
+
+def decoder_route(cfg: RunConfig) -> str:
+    """The run log's ``decoder:`` line.  ``--fast_decode`` without the
+    native decoder raises (the JAX package ignores the flag there)."""
+    info = native.native_info()
+    if info["available"]:
+        return (f"decoder: native ({info['libjpeg']})"
+                + (", fast" if cfg.fast_decode else ""))
+    if cfg.fast_decode:
+        raise RuntimeError(f"--fast_decode needs the native decoder, which "
+                           f"is unavailable: {info['reason']}")
+    return f"decoder: PIL ({info['reason']})"
 
 
 def _stream_pass(step, dispatch, dataset, cfg: RunConfig,
@@ -644,9 +658,11 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
     Returns {out_dataset: {FPR95, AUROC, AUPR}} plus an "AVG" row."""
     check_ported(cfg)
     resolve_device(cfg.device)   # no card and no --device cpu: fail first
+    route = decoder_route(cfg)
     setup_seed(cfg.seed)
     os.makedirs(cfg.log_directory, exist_ok=True)
     log = setup_log(cfg.log_directory, cfg.name)
+    log.debug(route)
     telemetry = Telemetry()
 
     # build BEFORE the cache-meta check: weight resolution may write the

@@ -347,9 +347,10 @@ class OODDetector:
 
     def score_files(self, paths: Sequence[str],
                     num_workers: Optional[int] = None) -> np.ndarray:
-        """Decode (PIL, through the port's ``DataPipeline``) + score image
-        files, with the evaluator's one-batch-behind readback so decode,
-        H2D, device compute and D2H overlap."""
+        """Decode (the native decoder through ``DataPipeline``'s default,
+        PIL for the rows it refuses) + score image files, with the
+        evaluator's one-batch-behind readback so decode, H2D, device
+        compute and D2H overlap."""
         from mcm_tpu_torch.data.pipeline import DataPipeline, collect_scores
         ds = [(p, 0) for p in paths]
         if not ds:

@@ -8,9 +8,11 @@ the network shape of the same capability, the JAX package's
 
 * stdlib-only threaded HTTP server (one thread per connection, which is
   exactly the concurrency shape ``MicroBatcher`` coalesces best);
-* request bodies decode with PIL in memory (resize shorter side + center
-  crop, the evaluator's transform), under a declared-pixels cap against
-  decompression bombs;
+* request bodies decode in memory through the native libjpeg decoder
+  (bulk requests on its GIL-free thread pool), PIL for the rows it
+  refuses (non-JPEG formats, quirks) or where the route is unavailable;
+  resize shorter side + center crop (the evaluator's transform), under a
+  declared-pixels cap against decompression bombs on both routes;
 * per-request scores come back through the batcher's futures, so a burst
   of N single-image clients costs ~1 device batch, not N;
 * ``/metrics`` exposes Prometheus-style counters (requests, images,
@@ -65,6 +67,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from mcm_tpu_torch.runtime import native
 from mcm_tpu_torch.serve import (BatcherClosed, MicroBatcher, OODDetector,
                                  Overloaded, RequestRefused)
 
@@ -80,8 +83,9 @@ MAX_BODY_BYTES = 64 * 1024 * 1024
 MAX_IMAGES_PER_REQUEST = 1024
 
 #: untrusted image bytes may not declare more pixels than this (PIL's
-#: default MAX_IMAGE_PIXELS); PIL alone would still *decode* up to 2x this
-#: (~534 MB RGB) and only warn
+#: default MAX_IMAGE_PIXELS, the same cap the native decoder enforces:
+#: runtime/decoder.cpp's bomb guard); PIL alone would still *decode* up to
+#: 2x this (~534 MB RGB) and only warn
 MAX_DECODE_PIXELS = 89_478_485
 
 
@@ -92,12 +96,11 @@ class _BombCapError(ValueError):
     internal ValueErrors through with their full text to HTTP clients."""
 
 
-def decode_image_bytes(data: bytes, size: int = 224) -> np.ndarray:
-    """Request bytes → preprocessed uint8 [size, size, 3] (resize shorter
-    side + center crop, the evaluator's transform), decoded by PIL in
-    memory.  Refuses bytes that declare more than ``MAX_DECODE_PIXELS``
-    pixels before decoding any (PIL by default decodes up to ~178M px with
-    only a warning).  Raises ValueError if the bytes do not decode."""
+def _pil_decode(data: bytes, size: int) -> np.ndarray:
+    """PIL for bytes the native decoder can't or won't decode (non-JPEG
+    formats, quirks, or no native route).  Enforces the same
+    declared-pixels bomb cap as the native path: PIL by default decodes up
+    to ~178M px with only a warning."""
     try:
         from PIL import Image
 
@@ -118,14 +121,33 @@ def decode_image_bytes(data: bytes, size: int = 224) -> np.ndarray:
         raise ValueError(f"undecodable image ({type(e).__name__})")
 
 
+def decode_image_bytes(data: bytes, size: int = 224) -> np.ndarray:
+    """Request bytes → preprocessed uint8 [size, size, 3] (resize shorter
+    side + center crop, the evaluator's transform).  Native decode in
+    memory first, PIL for what it refuses.  Raises ValueError if neither
+    can decode the bytes."""
+    out = native.decode_one_mem(data, size)
+    if out is not None:
+        return out
+    return _pil_decode(data, size)
+
+
 def decode_images_bulk(datas: Sequence[bytes],
                        size: int = 224) -> Sequence[np.ndarray]:
-    """:func:`decode_image_bytes` over the rows of a bulk request.  Raises
-    ValueError naming the first undecodable row."""
+    """Decode a bulk request on the native thread pool
+    (``mcm_decode_mem_batch``), PIL per failed row: the same results as
+    mapping :func:`decode_image_bytes`, with the JPEG majority decoded in
+    parallel outside the GIL.  Raises ValueError naming the first
+    undecodable row."""
+    batch, status = native.decode_mem_batch(datas, size)
     images = []
     for i, data in enumerate(datas):
+        if batch is not None and status[i] == 0:
+            images.append(batch[i])
+            continue
         try:
-            images.append(decode_image_bytes(data, size))
+            # a row the native pool refused is not parsed natively again
+            images.append(_pil_decode(data, size))
         except ValueError as e:
             raise ValueError(f"images_b64[{i}]: {e}")
     return images

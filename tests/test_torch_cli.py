@@ -4,11 +4,12 @@ mcm_tpu_torch.cli.eval_ood --device cpu``, with the structurally-identical
 tiny ViT-B/16 double (``MCM_TPU_TEST_TINY_B16=1``), random weights from
 seed 0 and parity precision.  Per-image scores agree to 2e-5 of the
 largest score (the bound of ``tests/test_crossimpl_e2e.py``) and the
-metrics and CSV are equal.  The JAX side decodes with PIL
-(``MCM_TPU_DISABLE_NATIVE=1``): its C++ decoder differs from PIL by up to
-2 LSB."""
+metrics and CSV are equal.  Both sides decode through their native libjpeg
+decoders, which are bit-equal (``tests/test_torch_native.py``), by default
+and with ``--fast_decode``; the port's log names its route."""
 
 import os
+import re
 import subprocess
 import sys
 import warnings
@@ -41,21 +42,20 @@ def tree(tmp_path_factory):
     return root
 
 
-def _run_both(tmp, root, ckpt_dirs=None):
+def _run_both(tmp, root, ckpt_dirs=None, flags=()):
     """Both CLIs on the tree; each in its own directory and, when given,
     with its own ``--ckpt_dir``.  Returns each run's results directory and
     its stderr."""
     out = {}
-    for name, cmd, extra in [
-            ("jax", [sys.executable, os.path.join(REPO, "eval_ood_detection.py")],
-             {"MCM_TPU_DISABLE_NATIVE": "1"}),
+    for name, cmd in [
+            ("jax", [sys.executable, os.path.join(REPO, "eval_ood_detection.py")]),
             ("torch", [sys.executable, "-m", "mcm_tpu_torch.cli.eval_ood",
-                       "--device", "cpu"], {})]:
+                       "--device", "cpu"])]:
         cwd = tmp / name
         cwd.mkdir()
         ckpt = ["--ckpt_dir", str(ckpt_dirs[name])] if ckpt_dirs else []
-        proc = _run(cmd + ARGS + ckpt + ["--root-dir", str(root), "--name",
-                                         name], str(cwd), **extra)
+        proc = _run(cmd + ARGS + ckpt + list(flags)
+                    + ["--root-dir", str(root), "--name", name], str(cwd))
         assert proc.returncode == 0, proc.stderr[-3000:]
         out[name] = (cwd / "results" / "pet37" / "MCM"
                      / f"CLIP_ViT-B/16_T_1_ID_{name}", proc.stderr)
@@ -66,6 +66,13 @@ def _run_both(tmp, root, ckpt_dirs=None):
 def runs(tmp_path_factory, tree):
     tmp = tmp_path_factory.mktemp("torch_cli")
     return {k: v[0] for k, v in _run_both(tmp, tree).items()}
+
+
+@pytest.fixture(scope="module")
+def fast_runs(tmp_path_factory, tree):
+    tmp = tmp_path_factory.mktemp("torch_cli_fast")
+    return {k: v[0] for k, v in _run_both(tmp, tree,
+                                          flags=["--fast_decode"]).items()}
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +121,35 @@ def test_metrics_csv_matches_jax_cli(runs):
     got = (runs["torch"] / "torch.csv").read_text()
     assert got == want
     assert got.splitlines()[0] == ",FPR95,AUROC,AUPR"
-    assert (runs["torch"] / "ood_eval_info.log").exists()
+    log = (runs["torch"] / "ood_eval_info.log").read_text()
+    assert re.search(r" decoder: native \(/\S*libjpeg\S*\)$", log, re.M), log
+
+
+@pytest.mark.parametrize("dataset", ["ID_pet37", "dtd"])
+def test_fast_decode_scores_match_jax_cli(fast_runs, runs, dataset):
+    """``--fast_decode`` (DCT-prescaled decode) on both sides: the same
+    scores and CSV as JAX's, and the log names the fast route."""
+    want = np.load(fast_runs["jax"] / f"{dataset}_scores.npy")
+    got = np.load(fast_runs["torch"] / f"{dataset}_scores.npy")
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-5 * np.abs(want).max())
+    assert (fast_runs["torch"] / "torch.csv").read_text() == \
+        (fast_runs["jax"] / "jax.csv").read_text()
+    log = (fast_runs["torch"] / "ood_eval_info.log").read_text()
+    assert re.search(r" decoder: native \(/\S*libjpeg\S*\), fast$", log,
+                     re.M), log
+
+
+def test_fast_decode_without_the_native_route_raises(tmp_path, tree):
+    """The JAX CLI ignores ``--fast_decode`` without its native decoder;
+    the port refuses to hide the missing route."""
+    proc = _run([sys.executable, "-m", "mcm_tpu_torch.cli.eval_ood",
+                 "--device", "cpu"] + ARGS + ["--fast_decode", "--root-dir",
+                                              str(tree)], str(tmp_path),
+                MCM_TPU_DISABLE_NATIVE="1")
+    assert proc.returncode != 0
+    assert "--fast_decode needs the native decoder" in proc.stderr
+    assert "MCM_TPU_DISABLE_NATIVE" in proc.stderr
 
 
 def test_cli_converts_the_same_snapshot(snapshot_runs):
@@ -153,11 +188,12 @@ def test_cli_without_card_raises_unless_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags", [["--n_devices", "2"],
                                    ["--model", "CLIP-Linear",
                                     "--model_parallel", "2"],
-                                   ["--fast_decode"],
+                                   ["--fast_decode", "--n_devices", "2"],
                                    ["--model_parallel", "2"]])
 def test_unported_options_raise(tmp_path, monkeypatch, flags):
     """What is not ported raises naming its item; ``--model CLIP-Linear``
-    is ported, and with an unported option still raises for that one."""
+    and ``--fast_decode`` are ported, and with an unported option still
+    raise for that one."""
     from mcm_tpu_torch.cli.eval_ood import main
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

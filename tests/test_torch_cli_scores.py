@@ -1,7 +1,7 @@
 """Both CLIs on synthetic JPEG trees for ``--score maha`` and ``--score
-odin``: the JAX package's ``eval_ood_detection.py`` (PIL decode,
-``MCM_TPU_DISABLE_NATIVE=1``) and the port's ``python -m
-mcm_tpu_torch.cli.eval_ood --device cpu``, with the tiny ViT-B/16 double,
+odin``: the JAX package's ``eval_ood_detection.py`` and the port's
+``python -m mcm_tpu_torch.cli.eval_ood --device cpu``, both decoding
+through their bit-equal native decoders, with the tiny ViT-B/16 double,
 random weights from seed 0 and parity precision.
 
 Per-image scores agree to 2e-5 of the largest score and the CSVs are
@@ -36,15 +36,14 @@ RUNS = {
 
 def _run_both(tmp, root, args):
     out = {}
-    for name, cmd, extra in [
-            ("jax", [sys.executable, os.path.join(REPO, "eval_ood_detection.py")],
-             {"MCM_TPU_DISABLE_NATIVE": "1"}),
+    for name, cmd in [
+            ("jax", [sys.executable, os.path.join(REPO, "eval_ood_detection.py")]),
             ("torch", [sys.executable, "-m", "mcm_tpu_torch.cli.eval_ood",
-                       "--device", "cpu"], {})]:
+                       "--device", "cpu"])]:
         cwd = tmp / name
         cwd.mkdir()
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-                   MCM_TPU_TEST_TINY_B16="1", **extra)
+                   MCM_TPU_TEST_TINY_B16="1")
         proc = subprocess.run(
             cmd + args + COMMON + ["--root-dir", str(root), "--name", name],
             cwd=str(cwd), env=env, capture_output=True, text=True,

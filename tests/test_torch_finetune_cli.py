@@ -5,7 +5,7 @@ writes a checkpoint, then ``--model CLIP-Linear`` on it through both CLIs
 per-image scores within 2e-5 of the largest score (the bound of
 ``tests/test_torch_cli.py``), in parity mode.  The structurally identical
 tiny ViT-B/16 double (``MCM_TPU_TEST_TINY_B16=1``) stands in for ViT-B/16;
-the JAX side decodes with PIL (``MCM_TPU_DISABLE_NATIVE=1``).  Also
+both sides decode through their bit-equal native decoders.  Also
 ``train_linear_probe``'s output and the tools' refusals."""
 
 import os
@@ -109,15 +109,14 @@ def test_clip_linear_csv_matches_jax_cli(finetuned, root, tmp_path):
             "--allow_random_weights", "--num_workers", "2", "--precision",
             "parity"]
     procs = {}
-    for name, cmd, extra in [
-            ("jax", [sys.executable, os.path.join(REPO, "eval_ood_detection.py")],
-             {"MCM_TPU_DISABLE_NATIVE": "1"}),
+    for name, cmd in [
+            ("jax", [sys.executable, os.path.join(REPO, "eval_ood_detection.py")]),
             ("torch", [sys.executable, "-m", "mcm_tpu_torch.cli.eval_ood",
-                       "--device", "cpu"], {})]:
+                       "--device", "cpu"])]:
         cwd = tmp_path / name
         cwd.mkdir()
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-                   MCM_TPU_TEST_TINY_B16="1", **extra)
+                   MCM_TPU_TEST_TINY_B16="1")
         procs[name] = (cwd, subprocess.Popen(
             cmd + args + ["--name", name], cwd=str(cwd), env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))

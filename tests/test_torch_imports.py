@@ -33,8 +33,8 @@ print(" ".join(names))
 """
 
 #: modules the guard must reach by name (the walk finds every module; these
-#: are the entry points and the modules of the vit-Linear, serving and
-#: training paths)
+#: are the entry points and the modules of the vit-Linear, serving,
+#: training and native-decode paths)
 _NAMED = ("mcm_tpu_torch.models.vit", "mcm_tpu_torch.scores.msp",
           "mcm_tpu_torch.cli.eval_msp", "mcm_tpu_torch.cli.eval_ood",
           "mcm_tpu_torch.serve", "mcm_tpu_torch.serve_http",
@@ -42,7 +42,9 @@ _NAMED = ("mcm_tpu_torch.models.vit", "mcm_tpu_torch.scores.msp",
           "mcm_tpu_torch.train.linear_probe", "mcm_tpu_torch.train.checkpoint",
           "mcm_tpu_torch.train.loop", "mcm_tpu_torch.tools.finetune_clip",
           "mcm_tpu_torch.tools.train_linear_probe",
-          "mcm_tpu_torch.tools.train_attn_probe")
+          "mcm_tpu_torch.tools.train_attn_probe",
+          "mcm_tpu_torch.runtime.native", "mcm_tpu_torch.ops.preprocess",
+          "mcm_tpu_torch.tools.serve_soak", "mcm_tpu_torch.tools.http_soak")
 
 
 def test_port_imports_no_jax():

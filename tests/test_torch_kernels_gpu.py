@@ -27,7 +27,9 @@ trainable attention's gradients must be bit-identical to the math path's
 the bsd plain version; ``matmul_f32``'s forward with a gradient is
 bit-identical to the product without, and its input gradients are within
 bf16's rounding (2^-8 relative, plus 1e-4 of the largest value for fp32
-summation order) of an IEEE fp32 reference.
+summation order) of an IEEE fp32 reference.  Not a kernel, but checked on
+the card's host: the native JPEG decoder builds, loads and passes its
+self-test there.
 """
 
 import dataclasses
@@ -976,3 +978,30 @@ def test_bf16_train_step_runs_on_the_card(cuda, attn, remat, bsd_per_step):
     assert state.step == 5
     for p in state.params.parameters():
         assert p.dtype == torch.float32 and p.grad is not None
+
+
+def test_native_decoder_builds_and_loads_on_the_card_host(cuda, tmp_path):
+    """The card host's decode route: the native decoder builds against the
+    first ABI-62 libjpeg there (Pillow's bundled copy where the system has
+    none), passes its load-time self-test, and decodes a JPEG to the
+    pipeline's batch within PIL's ±2 LSB."""
+    import io
+
+    from PIL import Image
+
+    from mcm_tpu_torch.data.transforms import preprocess_uint8
+    from mcm_tpu_torch.runtime import native
+
+    info = native.native_info()
+    assert info["available"], info["reason"]
+    dec = native.load_decoder(build_dir=str(tmp_path))
+    assert dec.libjpeg == info["libjpeg"]
+    rng = np.random.default_rng(0)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+                    ).save(buf, "JPEG", quality=87)
+    got = dec.decode_one_mem(buf.getvalue(), 224)
+    with Image.open(io.BytesIO(buf.getvalue())) as img:
+        ref = preprocess_uint8(img, 224)
+    diff = np.abs(got.astype(np.int32) - ref)
+    assert diff.max() <= 2 and diff.mean() < 0.5

@@ -2,10 +2,9 @@
 the tiny supervised-ViT double (``MCM_TPU_TEST_TINY_VIT=1``: 2 layers,
 width 128, 4 heads at the full 224²/16 patch grid) and random weights
 from seed 0: the JAX package's ``mcm_tpu/cli/eval_msp.py`` and
-``eval_ood_detection.py --model vit-Linear`` (PIL decode,
-``MCM_TPU_DISABLE_NATIVE=1``) against the port's ``python -m
+``eval_ood_detection.py --model vit-Linear`` against the port's ``python -m
 mcm_tpu_torch.cli.eval_msp`` and ``... cli.eval_ood`` with ``--device
-cpu``.
+cpu``, both decoding through their bit-equal native decoders.
 
 ``eval_msp`` has no precision flag and runs fast mode (bf16) in both
 packages; ``eval_ood --model vit-Linear`` runs parity mode with a probe
@@ -83,10 +82,9 @@ def runs(tree):
         for name in ("jax", "torch"):
             cwd = tmp / f"{cli}_{name}"
             cwd.mkdir()
-            env = {"MCM_TPU_DISABLE_NATIVE": "1"} if name == "jax" else {}
             _run([sys.executable, *spec[name], *COMMON, *spec["args"],
                   *extra, "--root-dir", str(root), "--name", name],
-                 str(cwd), **env)
+                 str(cwd))
             out[cli, name] = cwd / spec["log_dir"].format(name=name)
     return out
 

@@ -390,15 +390,14 @@ def cli_runs(tmp_path_factory, workdir):
     _, root = workdir
     tmp = tmp_path_factory.mktemp("torch_resume_cli")
     out = {}
-    for name, cmd, extra in [
-            ("jax", [sys.executable, os.path.join(REPO, "eval_ood_detection.py")],
-             {"MCM_TPU_DISABLE_NATIVE": "1"}),
+    for name, cmd in [
+            ("jax", [sys.executable, os.path.join(REPO, "eval_ood_detection.py")]),
             ("torch", [sys.executable, "-m", "mcm_tpu_torch.cli.eval_ood",
-                       "--device", "cpu"], {})]:
+                       "--device", "cpu"])]:
         cwd = tmp / name
         cwd.mkdir()
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-                   MCM_TPU_TEST_TINY_B16="1", **extra)
+                   MCM_TPU_TEST_TINY_B16="1")
         log_dir = cwd / "results" / "pet37" / "MCM" / f"CLIP_ViT-B/16_T_1_ID_{name}"
         runs = []
         for resume in ([], ["--resume"]):

@@ -219,12 +219,23 @@ def test_score_images_snapshots_the_scoring_family(detector, images,
         detector._maha = None
 
 
-def test_score_files_matches_score_images(detector, tmp_path):
+@pytest.mark.parametrize("route", ["native", "pil"])
+def test_score_files_matches_score_images(detector, tmp_path, monkeypatch,
+                                          route):
+    """``score_files`` decodes as the file pipeline does: natively by
+    default, through PIL under ``MCM_TPU_DISABLE_NATIVE=1``; the images
+    decoded on the same route score the same."""
+    from mcm_tpu_torch.data.transforms import load_image_uint8
+    from mcm_tpu_torch.runtime import native
+    if route == "pil":
+        monkeypatch.setenv("MCM_TPU_DISABLE_NATIVE", "1")
+    else:
+        assert native.native_available(), native.native_info()
     make_imagefolder_tree(str(tmp_path / "t"), ["x"], 5)
     paths = sorted(str(p) for p in (tmp_path / "t" / "x").iterdir())
     from_files = detector.score_files(paths, num_workers=1)
-    from mcm_tpu_torch.data.transforms import load_image_uint8
-    imgs = np.stack([load_image_uint8(p) for p in paths])
+    decode = native.decode_one if route == "native" else load_image_uint8
+    imgs = np.stack([decode(p) for p in paths])
     np.testing.assert_allclose(from_files, detector.score_images(imgs),
                                rtol=5e-3, atol=5e-4)
     out = detector.score_files([])

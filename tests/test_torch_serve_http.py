@@ -87,15 +87,24 @@ def _raw_exchange(server, raw: bytes, timeout=20.0) -> bytes:
 
 # -- decode ---------------------------------------------------------------------
 
-def test_decode_image_bytes_matches_the_file_pipeline(tmp_path):
+@pytest.mark.parametrize("route", ["native", "pil"])
+def test_decode_image_bytes_matches_the_file_pipeline(tmp_path, monkeypatch,
+                                                      route):
+    """Request bytes decode as the same file through ``DataPipeline``, on
+    either route (``MCM_TPU_DISABLE_NATIVE=1``: PIL on both)."""
     from PIL import Image
 
-    from mcm_tpu_torch.data.transforms import load_image_uint8
+    from mcm_tpu_torch.data import DataPipeline
+    from mcm_tpu_torch.runtime import native
     from mcm_tpu_torch.serve_http import decode_image_bytes, decode_images_bulk
+    if route == "pil":
+        monkeypatch.setenv("MCM_TPU_DISABLE_NATIVE", "1")
+    assert native.native_available() == (route == "native")
     data = _jpeg_bytes(np.random.default_rng(0))
     p = tmp_path / "img.jpg"
     p.write_bytes(data)
-    assert np.array_equal(decode_image_bytes(data), load_image_uint8(str(p)))
+    batch = next(iter(DataPipeline([(str(p), 0)], 1, num_workers=1)))
+    assert np.array_equal(decode_image_bytes(data), batch.images[0])
     buf = io.BytesIO()
     Image.fromarray(np.zeros((64, 64, 3), np.uint8)).save(buf, "PNG")
     assert decode_image_bytes(buf.getvalue()).shape == (224, 224, 3)
@@ -105,6 +114,36 @@ def test_decode_image_bytes_matches_the_file_pipeline(tmp_path):
     assert np.array_equal(bulk[0], decode_image_bytes(data))
     with pytest.raises(ValueError, match=r"images_b64\[1\]"):
         decode_images_bulk([data, b"junk", data])
+
+
+def test_bulk_decode_falls_back_per_row_and_matches_jax(monkeypatch):
+    """A bulk request decodes on the native pool, and only its refused rows
+    (a PNG, a scan cut short) go to PIL, without a second native parse;
+    every row equals the JAX server's decode of it."""
+    from PIL import Image
+
+    from mcm_tpu.serve_http import decode_images_bulk as jax_bulk
+    from mcm_tpu_torch.runtime import native
+    from mcm_tpu_torch.serve_http import decode_images_bulk
+    rng = np.random.default_rng(5)
+    jpeg = _jpeg_bytes(rng)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (40, 50, 3), dtype=np.uint8)
+                    ).save(buf, "PNG")
+    cut = jpeg[:len(jpeg) // 2] + b"\xff\xd9"   # PIL fills grey
+    rows = [jpeg, buf.getvalue(), cut, _jpeg_bytes(rng, w=500, h=375)]
+    want = jax_bulk(rows)
+
+    def no_second_parse(*a, **k):
+        raise AssertionError("a refused row was parsed natively again")
+
+    monkeypatch.setattr(native, "decode_one_mem", no_second_parse)
+    got = decode_images_bulk(rows)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    _, status = native.decode_mem_batch(rows)
+    assert status.tolist()[:3] == [0, 1, 1]
 
 
 def _bomb(side: int) -> bytes:
