@@ -61,7 +61,11 @@
    128`` (one MCM launch per image batch, no other kernel: the gradient
    pass runs the math paths), with ODIN at ε = 0 held against MCM on one
    batch at the same precision and ODIN's device ms and peak memory per
-   batch; ``--score MCM --eval_accuracy --trace_dir`` (bsd for the ID
+   batch, then ``--score odin`` without ``-b`` (the CLI's default 512, its
+   gradient pass in sub-batches of 128): one MCM launch per image batch,
+   the run's peak memory and the ms of a batch printed with the card line,
+   every score within 2e-5 of the largest of the ``-b 128`` run's;
+   ``--score MCM --eval_accuracy --trace_dir`` (bsd for the ID
    feature pass, MCM for the OOD batches only, the accuracy line, a
    ``torch.profiler`` trace naming the bsd kernel), then the same command
    with ``--resume``: no launch, no parameter upload (peak memory below
@@ -107,6 +111,22 @@
    q/k/v gradients bit-equal to the math path's, the output within one
    bf16 ulp of the plain version, forward + backward ms; (d)
    ``tools.train_attn_probe``'s four cells (ms a step, peak memory).
+   dp phase, after the slice phase on its weights and trees: ``python -m
+   torch.distributed.run --standalone`` over this script in its rank mode
+   (``chip_smoke.py --dp-rank <report> <argv>``: the eval CLI's ``main``
+   on ``argv``, what ``-m mcm_tpu_torch.cli.eval_ood`` runs, with the
+   rank's launch counts set to 0 just before it and read just after, its
+   peak memory and wall written to ``<report>.rank<r>.json``): (a) one
+   rank, ``-b 128 --n_devices 1``, scores and CSV bit-equal to the
+   single-process MCM run; (b) two ranks on card 0 (``--device cuda:0
+   --n_devices 2``), each scoring its stripe of 64 rows of every batch:
+   scores within rtol 5e-3 / atol 5e-4 of that run, whether the CSVs are
+   equal, 12 bsd and 1 MCM launch per image batch in each rank, each
+   rank's peak memory and wall and the total and per-rank img/s with the
+   card line (two ranks share one card: a yardstick within the call);
+   (c) ``--score maha`` on two ranks (templates from the gathered train
+   features, in a directory of their own) within the same tolerance of the
+   single-process maha run.
 4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
    turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
@@ -123,7 +143,8 @@
    kernel they reach must be launched.
 6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line (its
    ``launches``: bsd and MCM summed over the slice phase's CLI runs (the
-   decode-route runs included), training, serving and soak runs, the knob
+   decode-route runs included), training, serving and soak runs and every
+   rank of the dp phase, the knob
    kernels over their bench runs, the tools' kernels over their tool's
    run), the card line again and, last,
    ``{"ok": true, "device": {...}}``.
@@ -179,6 +200,9 @@ SCORE_REL_TOL = 1e-2
 # ODIN at ε = 0 against MCM at the same (fp32, math-path) precision: the
 # same kernels on the same features, so equal to fp32 noise
 ODIN_ZERO_REL_TOL = 1e-5
+# ODIN at the CLI's default batch against -b 128: the ODIN tests' bound, of
+# the largest |score| (tests/test_torch_odin.py)
+ODIN_REL_TOL = 2e-5
 # serving: the JAX package's bucket tolerance (tests/test_serve.py), a row
 # scored in a batch of another size sums in another order
 SERVE_RTOL, SERVE_ATOL = 5e-3, 5e-4
@@ -1022,7 +1046,8 @@ def maha_run(work: str, data: str, ckpt: str) -> dict:
 
 def odin_run(work: str, data: str, ckpt: str) -> dict:
     """``--score odin`` at ``-b 128``: one MCM launch per image batch and
-    no other kernel; then ODIN at ε = 0 against MCM on one batch."""
+    no other kernel; then ODIN at ε = 0 against MCM on one batch; then
+    ``--score odin`` without ``-b`` (the CLI's default 512)."""
     run = cli_run(work, _cli_argv(data, ckpt, "chip_smoke_odin",
                                   "--in_dataset", "ImageNet", "--score",
                                   "odin", "-b", str(BATCH)))
@@ -1043,7 +1068,61 @@ def odin_run(work: str, data: str, ckpt: str) -> dict:
           "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
           "csv": open(csv).read().strip().splitlines(),
           **odin_batch_check(data, ckpt)})
-    return {"mcm_score": run["launches"]["mcm_score"]}
+    default = odin_default_batch_run(work, data, ckpt)
+    return {"mcm_score": run["launches"]["mcm_score"] + default}
+
+
+def odin_default_batch_run(work: str, data: str, ckpt: str) -> int:
+    """``--score odin`` with no ``-b``: the CLI's default batch (512), its
+    gradient pass in sub-batches of ``ODIN_GRAD_ROWS``.  One MCM launch per
+    image batch and no other kernel, the peak memory of the run, the ms of
+    one such batch (CUDA events), and every score within the ODIN tolerance
+    of the ``-b 128`` run's (the sub-batches are those runs' batches; only
+    the scoring encode runs at another M)."""
+    from mcm_tpu_torch.cli.eval_ood import build_parser
+    from mcm_tpu_torch.parallel.eval_step import ODIN_GRAD_ROWS
+
+    batch = build_parser().get_default("batch_size")
+    run = cli_run(work, _cli_argv(data, ckpt, "chip_smoke_odin_default",
+                                  "--in_dataset", "ImageNet", "--score",
+                                  "odin"))
+    n_batches = -(-N_ID // batch) + len(OOD_SETS) * -(-N_OOD // batch)
+    _check_only(run["launches"], {"mcm_score": n_batches},
+                f"odin run at -b {batch} over {n_batches} image batches")
+    log_dir = _log_dir(work, "ImageNet", "odin", "chip_smoke_odin_default")
+    deltas = {}
+    for ds, n in [("ID_ImageNet", N_ID)] + [(o, N_OOD) for o in OOD_SETS]:
+        got = np.load(os.path.join(log_dir, f"{ds}_scores.npy"))
+        want = np.load(os.path.join(_log_dir(work, "ImageNet", "odin",
+                                             "chip_smoke_odin"),
+                                    f"{ds}_scores.npy"))
+        tol = ODIN_REL_TOL * float(np.abs(want).max())
+        d = float(np.abs(got - want).max())
+        check(got.shape == want.shape == (n,) and d <= tol,
+              f"odin -b {batch} {ds}: shape {got.shape}, max delta {d} from "
+              f"the -b {BATCH} run (tol {tol})")
+        deltas[ds] = {"max_abs_delta": d, "tol": tol}
+    csv = os.path.join(log_dir, "chip_smoke_odin_default.csv")
+    check(os.path.exists(csv), f"no CSV at {csv}")
+    params, odin, text, images = _one_batch(data, ckpt, score="odin",
+                                            batch_size=batch)
+    ms = cuda_ms(lambda: odin.score(params, images, text), iters=2, warmup=1)
+    card = card_line()
+    print(f"ODIN at -b {batch} (gradient sub-batches of {ODIN_GRAD_ROWS}): "
+          f"max_memory_allocated_bytes {run['max_memory_allocated_bytes']}, "
+          f"{ms:.1f} ms a batch ({card})", flush=True)
+    emit({"phase": "slice_odin_default_batch", "batch": batch,
+          "grad_rows": ODIN_GRAD_ROWS, "image_batches": n_batches,
+          "launches": run["launches"], "results": run["results"],
+          "cli_wall_s": run["cli_wall_s"],
+          "loop_images_per_s": _loop_rate(_read_log(log_dir)),
+          "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+          "batch_ms": ms, "score_deltas_vs_b128": deltas, "card": card,
+          "csv_equal_b128": open(csv).read() == open(os.path.join(
+              _log_dir(work, "ImageNet", "odin", "chip_smoke_odin"),
+              "chip_smoke_odin.csv")).read()})
+    del params, odin, text, images
+    return run["launches"]["mcm_score"]
 
 
 def odin_batch_check(data: str, ckpt: str) -> dict:
@@ -1594,14 +1673,15 @@ def _one_batch(data: str, ckpt: str, **over) -> tuple:
     from mcm_tpu_torch.data import DataPipeline, get_test_labels, set_val_loader
     from mcm_tpu_torch.runner import RunConfig, _encode_prompts, build_model_and_step
 
-    cfg = RunConfig(in_dataset="ImageNet", root_dir=data, batch_size=BATCH,
+    over = {"batch_size": BATCH, **over}
+    cfg = RunConfig(in_dataset="ImageNet", root_dir=data,
                     allow_random_weights=True, ckpt_dir=ckpt, device="cuda",
                     **over)
     params, tokenizer, step = build_model_and_step(cfg)
     val = set_val_loader("ImageNet", data)
     text = _encode_prompts(step, params, tokenizer,
                            get_test_labels("ImageNet", val), False)
-    batch = next(iter(DataPipeline(val, BATCH, num_workers=8)))
+    batch = next(iter(DataPipeline(val, cfg.batch_size, num_workers=8)))
     return params, step, text, step.put_batch(batch.images)
 
 
@@ -1963,6 +2043,203 @@ _BENCH_ENV = ("MCM_BENCH_CKPT", "MCM_BENCH_BATCH", "MCM_BENCH_ATTN",
               DISABLE_NATIVE)
 
 
+# -- 3c. dp phase (after the slice phase, on its weights and trees) -------------
+
+# two ranks on one card score stripes of B/2 rows: in fast mode cuBLAS may
+# pick another algorithm for M = 64·197 than for 128·197, so the two-rank
+# scores are held to serving's bucket tolerance (ROADMAP.md Queue 3 N)
+DP_RTOL, DP_ATOL = SERVE_RTOL, SERVE_ATOL
+DP_TIMEOUT_S = 600
+
+
+def _launch_ranks(work: str, name: str, nproc: int, argv) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc`` over this script in its rank mode (``--dp-rank``: the eval
+    CLI's ``main`` on ``argv``, with this rank's launch counts, wall and
+    peak memory written beside it), from ``work``; returns each rank's
+    report and the launch's wall seconds.  Output goes to a file, read
+    back on failure."""
+    report = os.path.join(work, f"dp_{name}")
+    out = os.path.join(work, f"dp_{name}.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+           "--dp-rank", report, *argv]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    t = time.perf_counter()
+    with open(out, "w") as f:
+        rc = subprocess.run(cmd, cwd=work, env=env, stdout=f,
+                            stderr=subprocess.STDOUT,
+                            timeout=DP_TIMEOUT_S).returncode
+    wall = time.perf_counter() - t
+    if rc != 0:
+        with open(out) as f:
+            print(f.read()[-6000:], flush=True)
+    check(rc == 0, f"dp launch {name} ({nproc} ranks) exited {rc}")
+    reports = []
+    for r in range(nproc):
+        with open(f"{report}.rank{r}.json") as f:
+            reports.append(json.load(f))
+    return reports, wall
+
+
+def dp_rank(report: str, argv) -> int:
+    """One rank of a dp launch: the eval CLI's ``main`` (what ``-m
+    mcm_tpu_torch.cli.eval_ood`` runs) with every launch count set to 0
+    just before it and read just after."""
+    from mcm_tpu_torch.cli.eval_ood import main as eval_ood
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    results = eval_ood(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rank = int(os.environ["RANK"])
+    with open(f"{report}.rank{rank}.json", "w") as f:
+        json.dump({"rank": rank, "world": int(os.environ["WORLD_SIZE"]),
+                   "device": f"cuda:{torch.cuda.current_device()}",
+                   "launches": {n: fn.launches for n, fn in counters.items()},
+                   "cli_wall_s": wall, "results": results,
+                   "max_memory_allocated_bytes":
+                       torch.cuda.max_memory_allocated()}, f)
+    return 0
+
+
+def _score_files(log_dir: str, names) -> dict:
+    return {n: np.load(os.path.join(log_dir, f"{n}_scores.npy"))
+            for n in names}
+
+
+def _held(got: dict, want: dict, exact: bool, what: str) -> dict:
+    """Each dataset's scores against the single-process run's: bit-equal,
+    or within DP_RTOL / DP_ATOL."""
+    out = {}
+    for ds, w in want.items():
+        g = got[ds]
+        d = float(np.abs(g - w).max())
+        ok = (g.shape == w.shape and (np.array_equal(g, w) if exact else
+                                      np.allclose(g, w, rtol=DP_RTOL,
+                                                  atol=DP_ATOL)))
+        rel = float((np.abs(g - w) / np.maximum(np.abs(w), 1e-30)).max())
+        check(ok, f"{what} {ds}: shape {g.shape} vs {w.shape}, max delta "
+                  f"{d} (max relative {rel}), "
+                  + ("want bit-equal" if exact else
+                     f"tol rtol {DP_RTOL} atol {DP_ATOL}"))
+        out[ds] = {"max_abs_delta": d, "max_rel_delta": rel,
+                   "bit_equal": bool(np.array_equal(g, w))}
+    return out
+
+
+def dp_phase(work: str) -> dict:
+    """Data-parallel evaluation under the launcher, on the slice phase's
+    converted ViT-B/16 weights and trees: (a) one rank, bit-equal to the
+    single-process MCM run (scores and CSV); (b) two ranks sharing card 0
+    (``--device cuda:0``), each scoring its stripe of every batch of 128,
+    within DP_RTOL / DP_ATOL of that run, with 12 bsd and 1 MCM launch per
+    image batch in each rank; (c) ``--score maha`` on two ranks, the
+    templates from the gathered train features, within the same tolerance
+    of the single-process maha run.  Returns the launches summed over every
+    rank."""
+    data = os.path.join(work, "datasets")
+    ckpt = os.path.join(work, "ckpt")
+    card = card_line()
+    ood = [(o, N_OOD) for o in OOD_SETS]
+    n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
+    n_images = N_ID + N_OOD * len(OOD_SETS)
+    single = _log_dir(work, "ImageNet", "MCM", "chip_smoke")
+    want = _score_files(single, ["ID_ImageNet", *OOD_SETS])
+    with open(os.path.join(single, "chip_smoke.csv")) as f:
+        want_csv = f.read()
+    total = {"bsd_attention": 0, "mcm_score": 0}
+    out = {"phase": "dp", "card": card}
+
+    def mcm_launch(name, nproc, *flags):
+        reports, wall = _launch_ranks(work, name, nproc, _cli_argv(
+            data, ckpt, name, "--in_dataset", "ImageNet", "--score", "MCM",
+            "-b", str(BATCH), "--n_devices", str(nproc), *flags))
+        per_rank = {"bsd_attention": 12 * n_batches, "mcm_score": n_batches}
+        for r in reports:
+            _check_only(r["launches"], per_rank,
+                        f"{name} rank {r['rank']} over {n_batches} image "
+                        f"batches")
+            check(r["results"] == reports[0]["results"],
+                  f"{name}: rank {r['rank']} returned other results")
+            for k in total:
+                total[k] += r["launches"][k]
+        log_dir = _log_dir(work, "ImageNet", "MCM", name)
+        _check_scores(log_dir, dict([("ID_ImageNet", N_ID)] + ood))
+        with open(os.path.join(log_dir, f"{name}.csv")) as f:
+            csv = f.read()
+        return reports, wall, log_dir, csv
+
+    # (a) one rank under the launcher
+    reports, wall, log_dir, csv = mcm_launch("dp_ws1", 1)
+    out["ws1"] = {"launch_wall_s": wall, "ranks": reports,
+                  "scores_vs_single": _held(
+                      _score_files(log_dir, want), want, True, "dp_ws1"),
+                  "csv_equal": csv == want_csv}
+    check(csv == want_csv, "dp_ws1: the CSV differs from the single-process "
+                           "run's")
+    # (b) two ranks on card 0
+    reports, wall, log_dir, csv = mcm_launch("dp_ws2", 2, "--device",
+                                             "cuda:0")
+    rate = _loop_rate(_read_log(log_dir))
+    out["ws2"] = {"launch_wall_s": wall, "ranks": reports,
+                  "scores_vs_single": _held(
+                      _score_files(log_dir, want), want, False, "dp_ws2"),
+                  "csv_equal": csv == want_csv,
+                  "rank0_loop_images_per_s": rate,
+                  "total_images_per_s_launch": n_images / wall,
+                  "per_rank_images_per_s": [n_images / 2 / r["cli_wall_s"]
+                                            for r in reports]}
+    print(f"dp two ranks on one card: CSV equal to one process: "
+          f"{out['ws2']['csv_equal']}; launches per rank "
+          + ", ".join(f"rank {r['rank']}: bsd {r['launches']['bsd_attention']}"
+                      f" mcm {r['launches']['mcm_score']}, "
+                      f"max_memory_allocated_bytes "
+                      f"{r['max_memory_allocated_bytes']}, CLI wall "
+                      f"{r['cli_wall_s']:.2f}s" for r in reports)
+          + f"; launch wall {wall:.2f}s, total {n_images / wall:.1f} img/s, "
+          f"rank 0's loop {rate} img/s ({card})", flush=True)
+    # (c) maha on two ranks, templates of its own
+    tpl = os.path.join(work, "img_templates_dp")
+    name = "dp_maha"
+    reports, wall = _launch_ranks(work, name, 2, _cli_argv(
+        data, ckpt, name, "--in_dataset", "ImageNet10", "--score", "maha",
+        "-b", str(MAHA_BATCH), "--template_dir", tpl, "--n_devices", "2",
+        "--device", "cuda:0"))
+    n_train = MAHA_TRAIN_PER_CLASS * 10
+    maha_batches = (-(-n_train // MAHA_BATCH) + -(-MAHA_N_VAL // MAHA_BATCH)
+                    + len(OOD_SETS) * (N_OOD // MAHA_BATCH))
+    for r in reports:
+        _check_only(r["launches"], {"bsd_attention": 12 * maha_batches},
+                    f"{name} rank {r['rank']} over {maha_batches} batches")
+        total["bsd_attention"] += r["launches"]["bsd_attention"]
+    tail = N_OOD // MAHA_BATCH * MAHA_BATCH
+    names = ["ID_ImageNet10", *OOD_SETS]
+    single_maha = _log_dir(work, "ImageNet10", "maha", "chip_smoke_maha")
+    log_dir = _log_dir(work, "ImageNet10", "maha", name)
+    _check_scores(log_dir, dict([("ID_ImageNet10", MAHA_N_VAL)]
+                                + [(o, tail) for o in OOD_SETS]))
+    fname = "templates_CLIP_ViT-B-16_ImageNet10_250_False.npz"
+    with np.load(os.path.join(tpl, fname)) as a, \
+            np.load(os.path.join(work, "img_templates", fname)) as b:
+        tpl_delta = {k: float(np.abs(a[k] - b[k]).max())
+                     for k in ("classwise_mean", "precision")}
+    with open(os.path.join(log_dir, f"{name}.csv")) as f, \
+            open(os.path.join(single_maha, "chip_smoke_maha.csv")) as g:
+        maha_csv_equal = f.read() == g.read()
+    out["maha_ws2"] = {"launch_wall_s": wall, "ranks": reports,
+                       "template_max_abs_delta": tpl_delta,
+                       "csv_equal": maha_csv_equal,
+                       "scores_vs_single": _held(
+                           _score_files(log_dir, names),
+                           _score_files(single_maha, names), False, name)}
+    emit(out)
+    return total
+
+
 def _counters() -> dict:
     from mcm_tpu_torch.ops import attention, mcm_score, mlp
     return {"bsd_attention": attention.bsd_attention,
@@ -2149,11 +2426,14 @@ KERNELS = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if argv[:1] == ["--dp-rank"]:
+        return dp_rank(argv[1], argv[2:])
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2171,7 +2451,11 @@ def main() -> int:
         walls["decode"] = time.perf_counter() - t
         t = time.perf_counter()
         launches = slice_phase(work)
-    walls["slice"] = time.perf_counter() - t
+        walls["slice"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for k, v in dp_phase(work).items():
+            launches[k] += v
+    walls["dp"] = time.perf_counter() - t
     t = time.perf_counter()
     launches.update(bench_phase())
     walls["bench"] = time.perf_counter() - t

@@ -7,7 +7,8 @@ batch → normalize → ViT-B/16 forward → MCM score against 1000 cached class
 embeddings — on the card (weight values do not change throughput: random
 weights from seed 0, so the bench runs without checkpoints).  The port of
 the JAX package's ``bench.py``, with its structure and JSON keys; one
-device and no mesh.
+device and no mesh (under a launcher of several processes it raises: the
+rate per card over ranks is ``ROADMAP.md`` Queue 1, item 9a-bench).
 
 Prints ONE JSON line; headline keys:
   metric/value/unit  device-program throughput (best window)
@@ -298,6 +299,10 @@ def _mfu_pct(cfg, rate: float) -> float:
 def main(device="cuda") -> dict:
     """Run the bench on ``device`` (the card; tests pass "cpu"), print the
     JSON row and return it."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "the bench's rate per card over several processes is not "
+            "ported yet: ROADMAP.md Queue 1, item 9a-bench")
     device = resolve_device(device)
     ckpt = os.environ.get("MCM_BENCH_CKPT", "ViT-B/16")
     batch = int(os.environ.get("MCM_BENCH_BATCH", BATCH))

@@ -8,9 +8,13 @@ The pure-visual baseline MCM is compared against (reference README's
 google/vit-base-patch16-224 + MSP configuration; logits path as in
 ``utils/detection_util.py:124-133``).  The same flags, results layout and
 CSV as the JAX package's ``mcm_tpu/cli/eval_msp.py``, plus ``--device
-cuda|cpu`` (default ``cuda``, which raises without a card).  It shares
-the runner's vit-Linear machinery: weight resolution, one upload of the
-parameters, the score step and the streaming score pass.
+cuda|cuda:K|cpu`` (default ``cuda``, which raises without a card).  It
+shares the runner's vit-Linear machinery: weight resolution, one upload of
+the parameters, the score step and the streaming score pass, and with it
+data parallelism over the launcher's world (``python -m
+torch.distributed.run --standalone --nproc_per_node N -m
+mcm_tpu_torch.cli.eval_msp ...``), as the JAX CLI is data-parallel over
+every device; rank 0 logs and writes.
 
 Weights: an HF ``ViTForImageClassification`` snapshot directory
 ``<ckpt_dir>/vit-base-patch16-224/`` (``model.safetensors`` or
@@ -19,9 +23,10 @@ Weights: an HF ``ViTForImageClassification`` snapshot directory
 """
 
 import argparse
-import os
 
 import numpy as np
+
+from mcm_tpu_torch.cli.eval_ood import device_arg
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,29 +50,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--allow_random_weights", action="store_true")
     p.add_argument("--out_datasets", default=None, type=str, nargs="+")
     p.add_argument("--num_workers", default=None, type=int)
-    p.add_argument("--device", default="cuda", type=str,
-                   choices=["cuda", "cpu"],
-                   help="device to run on (cpu only when asked for)")
+    p.add_argument("--device", default="cuda", type=device_arg,
+                   help="cuda (this rank's card), cuda:K or cpu (only when "
+                        "asked for)")
     return p
 
 
 def main(argv=None) -> str:
     """Run the evaluation; returns the results directory."""
     args = build_parser().parse_args(argv)
-    from mcm_tpu_torch.config import resolve_device
+    from mcm_tpu_torch.parallel import multihost
+    with multihost.launched(args.device):
+        return _evaluate(args)
+
+
+def _evaluate(args) -> str:
     from mcm_tpu_torch.data import (default_out_datasets, set_ood_loader,
                                     set_val_loader, validate_out_datasets)
     from mcm_tpu_torch.metrics import get_and_print_results, print_measures
-    from mcm_tpu_torch.runner import RunConfig, build_model_and_step, score_dataset
-    from mcm_tpu_torch.utils import Telemetry, setup_log, setup_seed
+    from mcm_tpu_torch.parallel import multihost
+    from mcm_tpu_torch.runner import (RunConfig, _rank0_log,
+                                      build_model_and_step, score_dataset)
+    from mcm_tpu_torch.utils import Telemetry, setup_seed
     from mcm_tpu_torch.utils.results import save_as_dataframe
 
-    resolve_device(args.device)   # no card and no --device cpu: fail first
     setup_seed(args.seed)
     log_directory = (f"results/{args.in_dataset}/MSP_{args.score}/"
                      f"vit_T_{args.T}_ID_{args.name}")
-    os.makedirs(log_directory, exist_ok=True)
-    log = setup_log(log_directory, args.name)
+    log = _rank0_log(log_directory, args.name)
 
     cfg = RunConfig(in_dataset=args.in_dataset, root_dir=args.root_dir,
                     name=args.name, seed=args.seed,
@@ -84,22 +94,24 @@ def main(argv=None) -> str:
 
     val_ds = set_val_loader(args.in_dataset, args.root_dir)
     in_score = score_dataset(step, params, val_ds, None, cfg, telemetry)
-
-    auroc_list, aupr_list, fpr_list = [], [], []
-    for out_dataset in out_datasets:
-        log.debug(f"Evaluting OOD dataset {out_dataset}")  # sic (reference)
-        out_score = score_dataset(step, params,
-                                  set_ood_loader(out_dataset, args.root_dir),
-                                  None, cfg, telemetry)
-        # the shared helper owns the lower-is-ID double negation
-        get_and_print_results(args, log, in_score, out_score, auroc_list,
-                              aupr_list, fpr_list,
-                              method_name=f"MSP-{args.score}")
-    print_measures(log, float(np.mean(auroc_list)), float(np.mean(aupr_list)),
-                   float(np.mean(fpr_list)), "MSP-mean")
-    save_as_dataframe(log_directory, args.name, out_datasets, fpr_list,
-                      auroc_list, aupr_list)
-    log.debug(telemetry.report())
+    out_scores = [score_dataset(step, params,
+                                set_ood_loader(ds, args.root_dir), None, cfg,
+                                telemetry) for ds in out_datasets]
+    if multihost.process_index() == 0:   # every rank holds every score
+        auroc_list, aupr_list, fpr_list = [], [], []
+        for out_dataset, out_score in zip(out_datasets, out_scores):
+            log.debug(f"Evaluting OOD dataset {out_dataset}")  # sic
+            # the shared helper owns the lower-is-ID double negation
+            get_and_print_results(args, log, in_score, out_score, auroc_list,
+                                  aupr_list, fpr_list,
+                                  method_name=f"MSP-{args.score}")
+        print_measures(log, float(np.mean(auroc_list)),
+                       float(np.mean(aupr_list)), float(np.mean(fpr_list)),
+                       "MSP-mean")
+        save_as_dataframe(log_directory, args.name, out_datasets, fpr_list,
+                          auroc_list, aupr_list)
+        log.debug(telemetry.report())
+    multihost.barrier()   # the CSV is written before any rank returns
     return log_directory
 
 

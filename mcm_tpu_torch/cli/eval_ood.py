@@ -11,8 +11,8 @@ deliberately: ``--normalize/--generate/--subset`` use ``type=bool`` (any
 non-empty string parses True — the reference's argparse footgun at
 ``:40-43``).
 
-``--device cuda|cpu`` (default ``cuda``) picks the device; without a card
-the CLI raises unless ``--device cpu`` is given.  The reference's ``--gpu``
+``--device cuda|cuda:K|cpu`` (default ``cuda``) picks the device; without
+a card the CLI raises unless ``--device cpu`` is given.  The reference's ``--gpu``
 flag is accepted and ignored; ``--feat_dim`` is accepted for compatibility
 but derived from the checkpoint.  Every score runs, ``maha`` (templates
 from the ID train split under ``--template_dir``, estimated with
@@ -25,13 +25,22 @@ vit-Linear`` scores the supervised ViT's classifier logits (weights under
 ``--ckpt_dir``, a probe head through ``--finetune_ckpt``).  Images decode
 through the native libjpeg decoder (``MCM_TPU_DISABLE_NATIVE=1``: PIL);
 ``--fast_decode`` (its DCT-prescaled mode) raises where the native decoder
-is unavailable.  Options whose code is not ported yet
-(``--model_parallel > 1``, ``--n_devices > 1``) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+is unavailable.  ``--model_parallel > 1`` is not ported yet and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
+
+Data parallel, one process per card::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m mcm_tpu_torch.cli.eval_ood ... --n_devices N
+
+Each rank runs on ``cuda:LOCAL_RANK`` (``--device cuda:K`` puts every rank
+on card K) and scores its stripe of every batch; rank 0 writes the results.
+``--n_devices`` unset means the launcher's world size; any other value must
+equal it.
 """
 
 import argparse
-import os
+import re
 
 
 class _RecordExplicit(argparse.Action):
@@ -47,6 +56,14 @@ class _RecordExplicit(argparse.Action):
     def __call__(self, parser, namespace, values, option_string=None):
         setattr(namespace, self.dest, values)
         setattr(namespace, f"_{self.dest}_explicit", True)
+
+
+def device_arg(value: str) -> str:
+    """``--device``: ``cuda``, ``cuda:K`` or ``cpu``."""
+    if not re.fullmatch(r"cpu|cuda(:\d+)?", value):
+        raise argparse.ArgumentTypeError(
+            f"invalid device {value!r}: cuda, cuda:K or cpu")
+    return value
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,16 +115,21 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_count", default=250, type=int,
                         help="samples per class for mean/precision estimate")
     # -- extensions -----------------------------------------------------------
-    parser.add_argument("--device", default="cuda", type=str,
-                        choices=["cuda", "cpu"],
-                        help="device to run on (cpu only when asked for)")
+    parser.add_argument("--device", default="cuda", type=device_arg,
+                        help="cuda (this rank's card: cuda:LOCAL_RANK), "
+                             "cuda:K (every rank on card K) or cpu (only "
+                             "when asked for)")
     parser.add_argument("--precision", default="fast", type=str,
                         choices=["fast", "parity", "bf16", "fp32"],
                         help="bf16 fast path vs fp32 parity path")
     parser.add_argument("--model_parallel", default=1, type=int,
                         help="tensor-parallel size (only 1 is ported)")
     parser.add_argument("--n_devices", default=None, type=int,
-                        help="limit device count (default: all)")
+                        help="data-parallel processes, one per card (default:"
+                             " the launcher's world size, 1 without one); "
+                             "launch N with python -m torch.distributed.run "
+                             "--standalone --nproc_per_node N -m "
+                             "mcm_tpu_torch.cli.eval_ood ... --n_devices N")
     parser.add_argument("--num_workers", default=None, type=int,
                         help="host decode threads")
     parser.add_argument("--prefetch", default=2, type=int,
@@ -141,6 +163,7 @@ def process_args(argv=None):
 
 def main(argv=None):
     args = process_args(argv)
+    from mcm_tpu_torch.parallel import multihost
     from mcm_tpu_torch.runner import RunConfig, run_eval
 
     cfg = RunConfig(
@@ -180,8 +203,8 @@ def main(argv=None):
         finetune_ckpt=args.finetune_ckpt,
         noise_magnitude=args.noiseMagnitude,
     )
-    os.makedirs(cfg.log_directory, exist_ok=True)
-    return run_eval(cfg)
+    with multihost.launched(cfg.device):
+        return run_eval(cfg)
 
 
 if __name__ == "__main__":

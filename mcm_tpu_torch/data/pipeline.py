@@ -12,8 +12,8 @@ of the consumer on a bounded queue so host decode overlaps device compute.
 Batches are **uint8 HWC with static shapes**: the final partial batch is
 padded (``valid`` marks real rows); padding rows are dropped after score
 readback, reproducing the reference's tail truncation
-(``detection_util.py:249``).  One process decodes whole batches (no
-multi-host stripes).
+(``detection_util.py:249``).  Under data parallelism each process decodes
+only its stripe of every global batch (:mod:`mcm_tpu_torch.parallel.multihost`).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, NamedTuple, Optional, Sequence
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -30,9 +30,9 @@ from mcm_tpu_torch.runtime import native
 
 
 class Batch(NamedTuple):
-    images: np.ndarray   # uint8 [B, S, S, 3]
-    labels: np.ndarray   # int32 [B]
-    valid: int           # non-padding row count of the batch
+    images: np.ndarray   # uint8 [local_B, S, S, 3] (this process's stripe)
+    labels: np.ndarray   # int32 [local_B]
+    valid: int           # GLOBAL non-padding row count of the batch
 
 
 class DataPipeline:
@@ -51,12 +51,17 @@ class DataPipeline:
                     the shorter side ≥ target, fast IDCT; ~1-4 LSB from
                     PIL on natural images: a throughput mode, NOT for
                     parity runs).  Raises without the native route.
+    stripe:         (lo, hi) rows of each global batch this process
+                    decodes; default: this process's stripe of the
+                    ``torch.distributed`` group ((0, batch_size) without
+                    one), taken at the first decode.
     """
 
     def __init__(self, dataset, batch_size: int, image_size: int = 224,
                  num_workers: Optional[int] = None, prefetch: int = 2,
                  drop_remainder: bool = False, use_native: bool = True,
-                 fast_decode: bool = False):
+                 fast_decode: bool = False,
+                 stripe: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.image_size = image_size
@@ -73,6 +78,22 @@ class DataPipeline:
         #: rows decoded by PIL: those the native decoder refused (PNG,
         #: truncated, CMYK files), or every row without the native route
         self.pil_rows = 0
+        # Every process iterates the same number of (lockstep) batches and
+        # ``valid`` stays the GLOBAL count; the stripe's padding is dropped
+        # by ``assemble_global_outputs`` after readback.
+        self._stripe = stripe
+
+    @property
+    def stripe(self) -> Tuple[int, int]:
+        if self._stripe is None:
+            from mcm_tpu_torch.parallel.multihost import batch_stripe
+            self._stripe = batch_stripe(self.batch_size)
+        return self._stripe
+
+    @property
+    def local_batch_size(self) -> int:
+        lo, hi = self.stripe
+        return hi - lo
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -89,17 +110,21 @@ class DataPipeline:
     def _decode_batch(self, lo: int, hi: int,
                       pool: Optional[ThreadPoolExecutor]) -> Batch:
         size = self.image_size
+        s_lo, s_hi = self.stripe
+        local_lo = min(lo + s_lo, hi)   # this process's rows of the batch
+        local_hi = min(lo + s_hi, hi)
         paths = []
-        labels = np.zeros((self.batch_size,), dtype=np.int32)
-        for row, i in enumerate(range(lo, hi)):
+        labels = np.zeros((self.local_batch_size,), dtype=np.int32)
+        for row, i in enumerate(range(local_lo, local_hi)):
             path, label = self.dataset[i]
             paths.append(path)
             labels[row] = label
         # np.empty: every real row is written below and the padding tail is
-        # replicated from the last real row
-        images = np.empty((self.batch_size, size, size, 3), dtype=np.uint8)
+        # replicated from the last real row (zeroed for an empty stripe)
+        images = np.empty((self.local_batch_size, size, size, 3),
+                          dtype=np.uint8)
         todo = list(range(len(paths)))
-        if self.use_native:
+        if self.use_native and paths:
             # straight into the batch buffer; failed rows are overwritten
             # by the PIL fallback below
             out, status = native.decode_batch(paths, size,
@@ -114,10 +139,13 @@ class DataPipeline:
         for i, img in zip(todo, decoded):
             images[i] = img
         self.pil_rows += len(todo)
-        valid = hi - lo
-        images[valid:] = images[valid - 1]
-        labels[valid:] = labels[valid - 1]
-        return Batch(images, labels, valid)
+        local_valid = len(paths)
+        if local_valid:
+            images[local_valid:] = images[local_valid - 1]
+            labels[local_valid:] = labels[local_valid - 1]
+        else:   # the tail batch left this stripe empty: all padding, but
+            images[:] = 0   # still a step, so the ranks stay in lockstep
+        return Batch(images, labels, hi - lo)   # valid = GLOBAL count
 
     # -- iteration ------------------------------------------------------------
 

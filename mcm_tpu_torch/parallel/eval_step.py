@@ -7,8 +7,10 @@ forward, and the fused L2-normalize → class matmul → score reduction.  The
 only host↔device traffic per batch is uint8 pixels in (through pinned
 memory, asynchronously) and one fp32 score per image out.
 :class:`VitLinearStep` is the same for the supervised ViT + linear head
-(``--model vit-Linear``).  One device: multi-card data parallelism is
-``ROADMAP.md`` Queue 1, item 9.
+(``--model vit-Linear``).  A step is bound to its process's card (the
+mesh's device); under data parallelism each process runs these per-batch
+programs on its stripe of every batch (:mod:`.multihost`), ODIN included,
+as JAX's ``shard_map`` runs it per shard.
 """
 
 from __future__ import annotations
@@ -20,17 +22,35 @@ import numpy as np
 import torch
 
 from mcm_tpu_torch.config import (CLIPConfig, Precision, SupervisedViTConfig,
-                                  apply_matmul_policy, resolve_device)
+                                  apply_matmul_policy)
 from mcm_tpu_torch.data.transforms import (CLIP_MEAN, CLIP_STD, IMAGENET_MEAN,
                                            IMAGENET_STD, normalize_on_device)
 from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models import vit as tvit
 from mcm_tpu_torch.models.convert import from_jax_params
 from mcm_tpu_torch.ops.mcm_score import fused_mcm_scores
+from mcm_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mcm_tpu_torch.scores.clip_scores import (CLIP_SCORES, _scores_from_logits,
                                               ieee_fp32_matmul, l2_normalize)
 from mcm_tpu_torch.scores.mahalanobis import mahalanobis_score
 from mcm_tpu_torch.scores.odin import clip_odin_logits_fn, odin_perturb
+
+#: rows of ODIN's gradient pass at a time.  The pass keeps the fp32
+#: autograd graph of its rows: 24,686,236,160 bytes at B = 128 on CLIP
+#: ViT-B/16 (NVIDIA H100 80GB HBM3), so the CLI's default -b 512 in one pass
+#: would not fit on an 80 GB card.  A per-image gradient couples no rows and
+#: sign(grad) is invariant under the mean's positive scale, so the
+#: sub-batches give the answer JAX's per-shard mean gives.
+ODIN_GRAD_ROWS = 128
+
+
+def _odin_perturb_rows(logits_fn, x: torch.Tensor, noise_magnitude: float,
+                       std) -> torch.Tensor:
+    """:func:`odin_perturb` over ``x`` in row sub-batches of at most
+    :data:`ODIN_GRAD_ROWS`, each its own gradient pass."""
+    return torch.cat([odin_perturb(logits_fn, x[i:i + ODIN_GRAD_ROWS],
+                                   noise_magnitude, std=std)
+                      for i in range(0, x.shape[0], ODIN_GRAD_ROWS)])
 
 
 def _odin_safe(precision: Precision) -> Precision:
@@ -67,7 +87,8 @@ class _Placement:
 
 
 class EvalStep(_Placement):
-    """Per-batch eval programs bound to one device.
+    """Per-batch eval programs bound to this process's card (``mesh.device``;
+    without a mesh, :func:`make_mesh` on ``device``).
 
     ``score(params, images_u8, text_feats)``   → [B] fp32 OOD scores
     ``features(params, images_u8)``            → [B, D] image features
@@ -75,13 +96,15 @@ class EvalStep(_Placement):
     ``encode_text(params, ids, mask)``         → [C, D] normalized prompts
 
     ``score="odin"`` perturbs each batch against the gradient of its own
-    pseudo-label NLL (``noise_magnitude``) and scores it with MCM, all
-    under :func:`_odin_safe`'s precision.
+    pseudo-label NLL (``noise_magnitude``), in row sub-batches of at most
+    :data:`ODIN_GRAD_ROWS`, and scores it with MCM, all under
+    :func:`_odin_safe`'s precision.
     """
 
     def __init__(self, cfg: CLIPConfig, score: str = "MCM", T: float = 1.0,
                  precision: Precision = Precision.fast(), device="cuda",
-                 noise_magnitude: float = 0.0014):
+                 noise_magnitude: float = 0.0014,
+                 mesh: Optional[Mesh] = None):
         if score not in CLIP_SCORES + ("odin",):
             raise ValueError(f"unknown score {score!r}")
         if score == "odin":
@@ -91,7 +114,8 @@ class EvalStep(_Placement):
         self.T = float(T)
         self.noise_magnitude = float(noise_magnitude)
         self.precision = precision
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        self.device = self.mesh.device
         apply_matmul_policy(precision)
 
     # -- device placement ------------------------------------------------------
@@ -128,17 +152,17 @@ class EvalStep(_Placement):
                     text_feats: torch.Tensor,
                     impl: Optional[str]) -> torch.Tensor:
         """ODIN input preprocessing (reference ``detection_util.py:122-146``):
-        nudge the normalized pixels against the NLL gradient sign, then
-        score the perturbed batch with temperature-scaled max-softmax.
-        :func:`odin_perturb` builds its graph outside inference mode; only
-        the final encode and score run in it."""
+        nudge the normalized pixels against the NLL gradient sign (row
+        sub-batches), then score the perturbed batch with temperature-scaled
+        max-softmax.  :func:`odin_perturb` builds its graph outside inference
+        mode; only the final encode and score run in it."""
         x = normalize_on_device(images_u8, CLIP_MEAN, CLIP_STD,
                                 dtype=self.precision.activation_dtype)
         logits_fn = clip_odin_logits_fn(
             lambda xi: tclip.encode_image(params, self.cfg.vision, xi,
                                           self.precision),
             text_feats, self.T)
-        x = odin_perturb(logits_fn, x, self.noise_magnitude, std=CLIP_STD)
+        x = _odin_perturb_rows(logits_fn, x, self.noise_magnitude, CLIP_STD)
         with torch.inference_mode():
             feats = tclip.encode_image(params, self.cfg.vision, x,
                                        self.precision).float()
@@ -194,14 +218,14 @@ class VitLinearStep(_Placement):
     as :class:`EvalStep` (``put_*``, ``score``, ``features``), so the
     runner streams batches identically; ``features`` returns the clean
     classifier *logits*, the substrate every score and the accuracy meter
-    derive from.  One device: ``model_parallel > 1`` raises, as in the
-    JAX package.
+    derive from.  Data-parallel only: ``model_parallel > 1`` raises, as in
+    the JAX package.
     """
 
     def __init__(self, cfg: SupervisedViTConfig, score: str = "MCM",
                  T: float = 1.0, precision: Precision = Precision.fast(),
                  device="cuda", noise_magnitude: float = 0.0014,
-                 model_parallel: int = 1):
+                 model_parallel: int = 1, mesh: Optional[Mesh] = None):
         if score not in CLIP_SCORES + ("odin",):
             raise ValueError(f"unknown score {score!r}")
         if model_parallel != 1:
@@ -214,7 +238,8 @@ class VitLinearStep(_Placement):
         self.T = float(T)
         self.noise_magnitude = float(noise_magnitude)
         self.precision = precision
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        self.device = self.mesh.device
         apply_matmul_policy(precision)
 
     def put_params(self, params) -> tvit.SupervisedViT:
@@ -239,7 +264,7 @@ class VitLinearStep(_Placement):
         """[B] fp32 scores from the logits.  ``score="odin"`` perturbs the
         normalized pixels against the gradient of the pseudo-label NLL of
         ``logits / T`` first (outside inference mode, IEEE fp32 products on
-        the math paths), then scores with max-softmax."""
+        the math paths, row sub-batches), then scores with max-softmax."""
         if self.score_name != "odin":
             with torch.inference_mode():
                 return _scores_from_logits(self.features(params, images_u8),
@@ -255,8 +280,8 @@ class VitLinearStep(_Placement):
         # ...)`` at ``detection_util.py:141-143`` is hardcoded even on the
         # vit-Linear branch, whose pixels were normalized with 0.5.
         with ieee_fp32_matmul():   # forward and backward: sign(grad)
-            x = odin_perturb(logits_fn, x, self.noise_magnitude,
-                             std=CLIP_STD)
+            x = _odin_perturb_rows(logits_fn, x, self.noise_magnitude,
+                                   CLIP_STD)
         with torch.inference_mode(), ieee_fp32_matmul():
             logits = tvit.forward_logits(params, self.cfg, x, self.precision)
             return _scores_from_logits(logits, self.T)["MCM"]

@@ -2,7 +2,7 @@
 
 Mirrors the reference's ``eval_ood_detection.py:main`` (``:53-99``) flow:
 model → ID loader → labels → ID scores → per-OOD-set scores → metrics →
-plots → CSV, on one CUDA device:
+plots → CSV, on one CUDA device per process:
 
 * text prompts tokenized + encoded once per ID dataset (the reference
   re-encodes them every batch, ``detection_util.py:228-231``);
@@ -17,21 +17,27 @@ plots → CSV, on one CUDA device:
   ID and text features) per dataset when ``cache_meta.json`` says they
   were produced under the same configuration and weights;
 * Mahalanobis templates are cached as ``.npz`` (the reference uses
-  ``.pt``, ``detection_util.py:175-176``; a reference pair is read too).
+  ``.pt``, ``detection_util.py:175-176``; a reference pair is read too);
+* data parallel under ``python -m torch.distributed.run`` (one process per
+  card, :mod:`mcm_tpu_torch.parallel.multihost`): each rank decodes and
+  scores its stripe of every batch and the passes gather the outputs back
+  into dataset order on every rank.  Which caches exist is read once, on
+  rank 0, and broadcast, so every rank takes the same passes; only rank 0
+  logs and writes (caches, templates, CSV, plots), the others wait for it.
 
 This covers ``--model CLIP`` with every score (the five logit scores,
 ``maha`` and ``odin``), ``--model CLIP-Linear`` (the same, on a fine-tuned
 tree from ``--finetune_ckpt``, as ``mcm_tpu_torch.tools.finetune_clip``
 writes it) and ``--model vit-Linear`` (the supervised ViT + linear head,
-scored from its logits; ``maha`` refused).  The options of the JAX runner
-not ported yet raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item.
+scored from its logits; ``maha`` refused).  ``--model_parallel > 1``
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import time
 import warnings
@@ -51,7 +57,8 @@ from mcm_tpu_torch.models.convert import (file_identity, load_params,
                                           resolve_clip_params,
                                           resolve_clip_weight_source)
 from mcm_tpu_torch.models.init import init_clip
-from mcm_tpu_torch.parallel import EvalStep, VitLinearStep
+from mcm_tpu_torch.parallel import EvalStep, VitLinearStep, multihost
+from mcm_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
 from mcm_tpu_torch.runtime import native
 from mcm_tpu_torch.scores.clip_scores import (_scores_from_logits_host,
                                               compute_scores_host, l2_normalize)
@@ -62,7 +69,8 @@ from mcm_tpu_torch.text import CLIPTokenizer, build_prompts
 from mcm_tpu_torch.text.prompts import DEFAULT_TEMPLATE, OPENAI_IMAGENET_TEMPLATES
 from mcm_tpu_torch.utils import Telemetry, load_scores, save_scores, setup_log
 from mcm_tpu_torch.utils.plotting import plot_distribution
-from mcm_tpu_torch.utils.results import atomic_write, save_as_dataframe
+from mcm_tpu_torch.utils.results import (atomic_write, save_as_dataframe,
+                                         scores_path)
 from mcm_tpu_torch.utils.seed import setup_seed
 from mcm_tpu_torch.utils.telemetry import maybe_profile
 
@@ -120,15 +128,33 @@ class RunConfig:
 
 
 def check_ported(cfg: RunConfig) -> None:
-    """Raise for every option of the JAX runner this slice does not port."""
-    todo = []
-    if cfg.model_parallel > 1 or (cfg.n_devices or 1) > 1:
-        todo.append("--model_parallel / --n_devices > 1: ROADMAP.md Queue 1, "
-                    "item 9")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+    """Raise for every option of the JAX runner the port does not have."""
+    if cfg.model_parallel > 1:
+        raise NotImplementedError("not ported yet: --model_parallel > 1: "
+                                  "ROADMAP.md Queue 1, item 9b")
     if cfg.model not in ("CLIP", "CLIP-Linear", "vit-Linear"):
         raise ValueError(f"unknown --model {cfg.model!r}")
+
+
+def _validate_batch_divisibility(cfg: RunConfig, mesh: Mesh) -> None:
+    """Fail before the weights load: each of the mesh's processes scores an
+    equal stripe of every (padded, static) batch."""
+    dp = mesh.shape[DATA_AXIS]
+    if cfg.batch_size % dp:
+        raise ValueError(
+            f"--batch_size {cfg.batch_size} is not divisible by the "
+            f"data-parallel mesh size {dp}; pick a multiple (every batch "
+            f"is padded to the static batch size, so the tail is fine)")
+
+
+def _rank0_log(log_directory: str, name: str) -> logging.Logger:
+    """The run log on rank 0; on the other ranks a logger that drops every
+    record (rank 0's ``ood_eval_info.log`` is the run's only one)."""
+    if multihost.process_index() == 0:
+        return setup_log(log_directory, name)
+    log = logging.getLogger(f"mcm_tpu_torch.{name}.rank")
+    log.disabled = True
+    return log
 
 
 class _HashTokenizer:
@@ -164,7 +190,8 @@ class _HashTokenizer:
                               context_length)
 
 
-def _build_vit_linear(cfg: RunConfig, log=None, defer_put: bool = False):
+def _build_vit_linear(cfg: RunConfig, mesh: Mesh, log=None,
+                      defer_put: bool = False):
     """Supervised ViT + linear head (reference ``vit-Linear``,
     ``detection_util.py:124-133``): backbone from an HF
     ``google/vit-base-patch16-224`` snapshot or its converted ``.npz``;
@@ -201,24 +228,27 @@ def _build_vit_linear(cfg: RunConfig, log=None, defer_put: bool = False):
     vit_cfg = dataclasses.replace(vit_cfg, num_classes=int(n_cls))
     step = VitLinearStep(vit_cfg, score=cfg.score, T=cfg.T,
                          precision=resolve_precision(cfg.precision),
-                         device=cfg.device,
                          noise_magnitude=cfg.noise_magnitude,
-                         model_parallel=cfg.model_parallel)
+                         model_parallel=cfg.model_parallel, mesh=mesh)
     return (params if defer_put else step.put_params(params)), None, step
 
 
 def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False):
     """Resolve weights + tokenizer and build the eval step (``EvalStep``
     for CLIP, ``VitLinearStep`` for ``--model vit-Linear``, which has no
-    tokenizer); returns the model on the step's device, the tokenizer and
-    the step.
+    tokenizer) on this process's mesh; returns the model on the step's
+    device, the tokenizer and the step.  A mesh that cannot be made (an
+    ``--n_devices`` other than the world size) or a batch its processes
+    cannot split raises before any weight loads.
 
     ``defer_put=True`` returns the HOST parameter tree instead (no device
     upload): :func:`run_eval` uploads it with ``step.put_params`` on first
     device use, so a fully cached ``--resume`` never touches the card."""
     check_ported(cfg)
+    mesh = make_mesh(cfg.n_devices, cfg.model_parallel, device=cfg.device)
+    _validate_batch_divisibility(cfg, mesh)
     if cfg.model == "vit-Linear":
-        return _build_vit_linear(cfg, log, defer_put)
+        return _build_vit_linear(cfg, mesh, log, defer_put)
     clip_cfg = CLIP_CONFIGS[cfg.clip_ckpt]()
     precision = resolve_precision(cfg.precision)
 
@@ -263,7 +293,7 @@ def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False):
 
     # maha scores image features: its step is MCM's (features + text)
     step = EvalStep(clip_cfg, score=cfg.score if cfg.score != "maha" else "MCM",
-                    T=cfg.T, precision=precision, device=cfg.device,
+                    T=cfg.T, precision=precision, mesh=mesh,
                     noise_magnitude=cfg.noise_magnitude)
     return (params if defer_put else step.put_params(params)), tokenizer, step
 
@@ -345,10 +375,8 @@ def _stream_pass(step, dispatch, dataset, cfg: RunConfig,
                  drop_remainder: bool = False,
                  collect_labels: bool = False):
     """The shared device-streaming loop (decode → H2D → dispatch →
-    one-batch-behind readback → dataset-order assembly).
-    ``dispatch(images)`` is the per-batch device call."""
-    from mcm_tpu_torch.data.pipeline import collect_scores
-
+    one-batch-behind readback → dataset-order assembly, gathered over the
+    ranks).  ``dispatch(images)`` is the per-batch device call."""
     tel = telemetry or Telemetry()
     pipe = _make_pipe(dataset, cfg, drop_remainder)
     stream = _StreamReadback(tel)
@@ -367,9 +395,9 @@ def _stream_pass(step, dispatch, dataset, cfg: RunConfig,
     total = (len(pipe) * cfg.batch_size if drop_remainder
              else pipe.num_samples)
     total = min(total, sum(valids)) if valids else 0
-    outs = collect_scores(stream.finish(), valids, total)
+    outs = multihost.assemble_global_outputs(stream.finish(), valids, total)
     if collect_labels:
-        return outs, collect_scores(labels, valids, total)
+        return outs, multihost.assemble_global_outputs(labels, valids, total)
     return outs
 
 
@@ -401,14 +429,27 @@ def _weight_content_sig(cfg: RunConfig) -> Optional[Dict[str, object]]:
     return {"size": ident["size"], "sha": ident["sha256_sampled"]}
 
 
+def _on_disk(paths: Sequence[str]) -> frozenset:
+    """The ``paths`` that exist, as rank 0 sees them, on every rank: a rank
+    that saw a file appear or vanish a moment later would take another pass,
+    and so join other collectives, than the rest."""
+    found = ({p for p in paths if os.path.exists(p)}
+             if multihost.process_index() == 0 else None)
+    return frozenset(multihost.broadcast_object(found))
+
+
 def _maha_templates(cfg: RunConfig, step: EvalStep, get_params, log,
                     telemetry: Optional[Telemetry] = None):
     """Estimate or load class means + precision (reference ``main:72-78``).
 
     ``get_params`` is a zero-arg callable returning device params — called
     only on the regenerate path, so a cached-template load stays free of
-    the parameter upload (device-free resume)."""
-    os.makedirs(cfg.template_dir, exist_ok=True)
+    the parameter upload (device-free resume).  Every rank extracts its
+    stripe of the train features and gets them all back; rank 0 estimates
+    and writes the templates, and every rank then loads that file."""
+    writer = multihost.process_index() == 0
+    if writer:
+        os.makedirs(cfg.template_dir, exist_ok=True)
     # beyond the reference's tag ({model}_{in_dataset}_{max_count}_
     # {normalize}, detection_util.py:175): the checkpoint name AND the
     # subset flag are part of it — the reference lets B/16 and B/32 share
@@ -418,30 +459,33 @@ def _maha_templates(cfg: RunConfig, step: EvalStep, get_params, log,
     tag = (f"{cfg.model}_{ckpt_tag}_{cfg.in_dataset}_{cfg.max_count}_"
            f"{cfg.normalize}" + ("_subset" if cfg.subset else ""))
     path = os.path.join(cfg.template_dir, f"templates_{tag}.npz")
+    mu_pt, prec_pt = reference_template_paths(
+        cfg.template_dir, cfg.model, cfg.in_dataset, cfg.max_count,
+        cfg.normalize)
+    on_disk = _on_disk([path, mu_pt, prec_pt])
     # --resume honors an existing template cache even under the default
     # --generate: regenerating would re-extract the whole train set
-    regenerate = cfg.generate and not (cfg.resume and os.path.exists(path))
-    if not cfg.generate and not os.path.exists(path):
+    regenerate = cfg.generate and not (cfg.resume and path in on_disk)
+    if not cfg.generate and path not in on_disk:
         # migrating users: accept the reference's torch .pt template pair
         # (detection_util.py:175-176) and re-cache it natively
-        mu_pt, prec_pt = reference_template_paths(
-            cfg.template_dir, cfg.model, cfg.in_dataset, cfg.max_count,
-            cfg.normalize)
-        if os.path.exists(mu_pt) and os.path.exists(prec_pt):
-            mu, prec = load_pt_templates(mu_pt, prec_pt)
-            log.debug(f"loaded reference-format .pt templates from "
-                      f"{mu_pt} / {prec_pt}")
-            # no weight_sig: which weights produced the pair is unknowable
-            atomic_write(path, lambda f: np.savez(
-                f, classwise_mean=mu, precision=prec,
-                normalize=cfg.normalize))
+        if mu_pt in on_disk and prec_pt in on_disk:
+            if writer:
+                mu, prec = load_pt_templates(mu_pt, prec_pt)
+                log.debug(f"loaded reference-format .pt templates from "
+                          f"{mu_pt} / {prec_pt}")
+                # no weight_sig: which weights produced the pair is
+                # unknowable
+                atomic_write(path, lambda f: np.savez(
+                    f, classwise_mean=mu, precision=prec,
+                    normalize=cfg.normalize))
         else:
             raise FileNotFoundError(
                 f"--generate was disabled but no cached Mahalanobis "
                 f"templates exist at {path} (nor a reference-format pair at "
                 f"{mu_pt}); run once with --generate first")
     sig = _weight_content_sig(cfg)
-    if regenerate or not os.path.exists(path):
+    if regenerate:   # (without it, the file is there or was just written)
         train_ds = set_train_loader(cfg.in_dataset, cfg.root_dir,
                                     subset=cfg.subset,
                                     max_count=cfg.max_count)
@@ -449,6 +493,7 @@ def _maha_templates(cfg: RunConfig, step: EvalStep, get_params, log,
         feats, labels = extract_features(step, get_params(), train_ds, cfg,
                                          telemetry)
         t_extract = time.perf_counter() - t0
+    if regenerate and writer:
         n_cls = len(get_test_labels(cfg.in_dataset, train_ds))
         t0 = time.perf_counter()
         mu, prec = estimate_mean_precision(feats, labels, n_cls,
@@ -465,6 +510,7 @@ def _maha_templates(cfg: RunConfig, step: EvalStep, get_params, log,
         atomic_write(path, lambda f: np.savez(
             f, classwise_mean=mu, precision=prec,
             normalize=cfg.normalize, **extra))
+    multihost.barrier()   # rank 0's file is on disk before any rank reads it
     with np.load(path) as data:
         # templates live OUTSIDE the fingerprint-purged log_directory, so
         # a swapped checkpoint under an unchanged config would otherwise
@@ -518,14 +564,19 @@ def _log_id_accuracy(cfg: RunConfig, feats, labels, text_feats, log) -> None:
     log.debug(f"ID zero-shot accuracy: top1 {top1:.2f}% top5 {top5:.2f}%")
 
 
+def _id_features_path(cfg: RunConfig) -> str:
+    return os.path.join(cfg.log_directory,
+                        f"ID_{cfg.in_dataset}_features.npz")
+
+
 def _id_features_cached(step, get_params, val_ds, cfg: RunConfig, log,
-                        telemetry=None):
-    """ID features (+labels), honoring --resume.  ``get_params`` (zero-arg
+                        cached: frozenset, telemetry=None):
+    """ID features (+labels), taken from the cache when ``cached`` (the
+    run's view of its resumable files) holds it.  ``get_params`` (zero-arg
     callable) is invoked only on a cache miss, so the cached path stays
     free of the parameter upload."""
-    path = os.path.join(cfg.log_directory,
-                        f"ID_{cfg.in_dataset}_features.npz")
-    if cfg.resume and os.path.exists(path):
+    path = _id_features_path(cfg)
+    if path in cached:
         with np.load(path) as data:
             log.debug(f"resume: loaded cached ID features for "
                       f"{cfg.in_dataset}")
@@ -533,7 +584,9 @@ def _id_features_cached(step, get_params, val_ds, cfg: RunConfig, log,
     with maybe_profile(cfg.trace_dir):
         feats, labels = extract_features(step, get_params(), val_ds, cfg,
                                          telemetry)
-    atomic_write(path, lambda f: np.savez(f, features=feats, labels=labels))
+    if multihost.process_index() == 0:
+        atomic_write(path, lambda f: np.savez(f, features=feats,
+                                              labels=labels))
     return feats, labels
 
 
@@ -655,13 +708,14 @@ def _check_cache_meta(cfg: RunConfig, log) -> RunConfig:
 def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
     """Full evaluation (reference ``main``, ``eval_ood_detection.py:53-99``).
 
-    Returns {out_dataset: {FPR95, AUROC, AUPR}} plus an "AVG" row."""
+    Returns {out_dataset: {FPR95, AUROC, AUPR}} plus an "AVG" row, on every
+    rank (rank 0 computes it)."""
     check_ported(cfg)
     resolve_device(cfg.device)   # no card and no --device cpu: fail first
     route = decoder_route(cfg)
     setup_seed(cfg.seed)
-    os.makedirs(cfg.log_directory, exist_ok=True)
-    log = setup_log(cfg.log_directory, cfg.name)
+    writer = multihost.process_index() == 0
+    log = _rank0_log(cfg.log_directory, cfg.name)
     log.debug(route)
     telemetry = Telemetry()
 
@@ -679,7 +733,10 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
             _params["dev"] = step.put_params(params_host)
         return _params["dev"]
 
-    cfg = _check_cache_meta(cfg, log)
+    if writer:
+        cfg = _check_cache_meta(cfg, log)
+    cfg = dataclasses.replace(
+        cfg, resume=multihost.broadcast_object(cfg.resume))
     out_datasets = cfg.out_datasets or default_out_datasets(cfg.in_dataset)
     # fail a typo'd --out_datasets before the ID pass
     validate_out_datasets(out_datasets)
@@ -693,6 +750,11 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
         cfg.log_directory,
         f"ID_{cfg.in_dataset}_text_features"
         f"{'_ens' if cfg.template_ensemble else ''}.npz")
+    # the caches --resume may take, as rank 0 sees them before any pass
+    cached = _on_disk(
+        [scores_path(cfg.log_directory, ds)
+         for ds in (f"ID_{cfg.in_dataset}", *out_datasets)]
+        + [_text_cache, _id_features_path(cfg)]) if cfg.resume else frozenset()
 
     def text_dev():
         """Prompt features on the device, encoded (or uploaded from the
@@ -700,8 +762,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
         if not needs_text:
             return None
         if "dev" not in _text:
-            if ("host" not in _text and cfg.resume
-                    and os.path.exists(_text_cache)):
+            if "host" not in _text and _text_cache in cached:
                 text_host()   # a partial resume uploads the cached copy
             if "host" in _text:
                 _text["dev"] = step.put_replicated(_text["host"])
@@ -717,15 +778,15 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
         if not needs_text:
             return None
         if "host" not in _text:
-            if (cfg.resume and "dev" not in _text
-                    and os.path.exists(_text_cache)):
+            if "dev" not in _text and _text_cache in cached:
                 with np.load(_text_cache) as data:
                     _text["host"] = data["text_features"]
                 log.debug("resume: loaded cached text features")
             else:
                 _text["host"] = text_dev().cpu().numpy()
-                atomic_write(_text_cache, lambda f: np.savez(
-                    f, text_features=_text["host"]))
+                if writer:
+                    atomic_write(_text_cache, lambda f: np.savez(
+                        f, text_features=_text["host"]))
         return _text["host"]
 
     _maha: Dict[str, object] = {}
@@ -738,11 +799,9 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
         return _maha["mu"], _maha["prec"]
 
     def scores_for(dataset, ds_name, in_dist):
-        if cfg.resume:
-            cached = load_scores(cfg.log_directory, ds_name)
-            if cached is not None:
-                log.debug(f"resume: loaded cached scores for {ds_name}")
-                return cached
+        if scores_path(cfg.log_directory, ds_name) in cached:
+            log.debug(f"resume: loaded cached scores for {ds_name}")
+            return load_scores(cfg.log_directory, ds_name)
         if cfg.score == "maha":
             mu, prec = maha_templates()
             s = maha_score_dataset(step, dev_params(), dataset, mu, prec,
@@ -750,7 +809,8 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
         else:
             s = score_dataset(step, dev_params(), dataset, text_dev(), cfg,
                               telemetry)
-        save_scores(cfg.log_directory, ds_name, s)
+        if writer:
+            save_scores(cfg.log_directory, ds_name, s)
         return s
 
     # ODIN scores need the perturbed forward, so the shared-features path
@@ -763,7 +823,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
         # one ID pass: features once, both the ID scores and the accuracy
         # derived from them on the host; features cached for --resume
         feats, labels = _id_features_cached(step, dev_params, val_ds, cfg,
-                                            log, telemetry)
+                                            log, cached, telemetry)
         if cfg.model == "vit-Linear":
             # the "features" are classifier logits: score them directly
             in_score = _scores_from_logits_host(
@@ -773,7 +833,8 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
             in_score = compute_scores_host(feats, text_host(),
                                            score=cfg.score, T=cfg.T)
         _log_id_accuracy(cfg, feats, labels, text_host(), log)
-        save_scores(cfg.log_directory, f"ID_{cfg.in_dataset}", in_score)
+        if writer:
+            save_scores(cfg.log_directory, f"ID_{cfg.in_dataset}", in_score)
     else:
         with maybe_profile(cfg.trace_dir):
             in_score = scores_for(val_ds, f"ID_{cfg.in_dataset}", True)
@@ -784,19 +845,32 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
             else:  # odin/parity: accuracy from a separate (cached) feature
                    # pass — scores stay pure device output
                 feats, labels = _id_features_cached(step, dev_params,
-                                                    val_ds, cfg, log,
+                                                    val_ds, cfg, log, cached,
                                                     telemetry)
                 _log_id_accuracy(cfg, feats, labels, text_host(), log)
+
+    out_scores = [scores_for(set_ood_loader(ds, cfg.root_dir), ds, False)
+                  for ds in out_datasets]
+    # every rank holds every score now; rank 0 reports and writes, and the
+    # broadcast of its results keeps the others until its files are written
+    results = (_report(cfg, log, in_score, out_datasets, out_scores)
+               if writer else None)
+    log.debug(telemetry.report())
+    return multihost.broadcast_object(results)
+
+
+def _report(cfg: RunConfig, log, in_score: np.ndarray,
+            out_datasets: Sequence[str],
+            out_scores: Sequence[np.ndarray]) -> Dict[str, Dict[str, float]]:
+    """Metrics, plots and the CSV of a run (reference ``main``'s tail)."""
+    from scipy import stats
 
     auroc_list: List[float] = []
     aupr_list: List[float] = []
     fpr_list: List[float] = []
     results: Dict[str, Dict[str, float]] = {}
-    for out_dataset in out_datasets:
+    for out_dataset, out_score in zip(out_datasets, out_scores):
         log.debug(f"Evaluting OOD dataset {out_dataset}")  # sic (reference)
-        ood_ds = set_ood_loader(out_dataset, cfg.root_dir)
-        out_score = scores_for(ood_ds, out_dataset, False)
-        from scipy import stats
         log.debug(f"in scores: {stats.describe(in_score)}")
         log.debug(f"out scores: {stats.describe(out_score)}")
         plot_distribution(cfg.log_directory, cfg.score, out_dataset,
@@ -815,5 +889,4 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
     results["AVG"] = {"FPR95": float(np.mean(fpr_list)),
                       "AUROC": float(np.mean(auroc_list)),
                       "AUPR": float(np.mean(aupr_list))}
-    log.debug(telemetry.report())
     return results

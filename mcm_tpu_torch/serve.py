@@ -75,7 +75,8 @@ class OODDetector:
 
     One device (``device``, default ``cuda``, which raises without a card):
     ``n_devices`` other than 1 (0 = all visible) and ``model_parallel > 1``
-    raise ``NotImplementedError`` naming ``ROADMAP.md`` Queue 1, item 9.
+    raise ``NotImplementedError`` naming ``ROADMAP.md`` Queue 1, items
+    9a-serve and 9b.
     """
 
     def __init__(self, class_names: Sequence[str], clip_ckpt: str = "ViT-B/16",
@@ -102,11 +103,14 @@ class OODDetector:
                         image_size=image_size,
                         n_devices=_resolve_n_devices(n_devices, device),
                         model_parallel=model_parallel, device=device)
-        if cfg.n_devices != 1 or model_parallel != 1:
+        if model_parallel != 1:
             raise NotImplementedError(
-                f"n_devices={cfg.n_devices}, model_parallel={model_parallel}: "
-                f"the port serves on one device; multi-device serving is "
-                f"ROADMAP.md Queue 1, item 9")
+                f"model_parallel={model_parallel}: tensor parallelism is "
+                f"ROADMAP.md Queue 1, item 9b")
+        if cfg.n_devices != 1:
+            raise NotImplementedError(
+                f"n_devices={cfg.n_devices}: the port serves on one device; "
+                f"multi-device serving is ROADMAP.md Queue 1, item 9a-serve")
         self.cfg = cfg
         self.image_size = image_size
         self.batch_sizes = tuple(sorted(batch_sizes))

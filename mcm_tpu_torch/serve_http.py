@@ -784,7 +784,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         "*_classwise_mean_*.pt)")
     p.add_argument("--n-devices", type=int, default=1,
                    help="serving devices (0 = all visible); only 1 is "
-                        "ported (ROADMAP.md Queue 1, item 9)")
+                        "ported (ROADMAP.md Queue 1, item 9a-serve)")
     p.add_argument("--model-parallel", type=int, default=1,
                    help="tensor-parallel span; only 1 is ported")
     p.add_argument("--warmup", default="score",

@@ -11,12 +11,15 @@ and, beside it, ``<out>.train_state.npz`` for ``--resume``.  The flags of
 the JAX package's ``tools/finetune_clip.py``, plus ``--device`` (default
 ``cuda``).  Its optimizer: ``optax.adamw(lr)`` with optax's weight decay
 of 1e-4 on the ``ndim >= 2`` leaves.  ``--model_parallel`` and
-``--n_devices`` above 1 raise: multi-GPU is not ported yet.
+``--n_devices`` above 1, or a launch of several processes, raise: data-
+and tensor-parallel training are not ported yet (``ROADMAP.md`` Queue 1,
+items 9a-train and 9b).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Sequence
 
 
@@ -47,6 +50,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
+    if (args.n_devices or 1) > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "training over several processes is not ported yet: ROADMAP.md "
+            "Queue 1, item 9a-train")
 
     from mcm_tpu_torch.config import CLIP_CONFIGS, Precision
     from mcm_tpu_torch.data import get_test_labels, set_train_loader

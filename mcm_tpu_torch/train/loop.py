@@ -132,6 +132,6 @@ def _save_checkpoint(params, ckpt_path: str, log) -> None:
             and dist.get_world_size() > 1:
         raise NotImplementedError(
             "checkpointing params that span processes (JAX's orbax branch) "
-            "is not ported yet: ROADMAP.md Queue 1, item 9")
+            "is not ported yet: ROADMAP.md Queue 1, item 9a-train")
     save_params(to_jax_params(params), ckpt_path)
     log(f"checkpoint -> {ckpt_path}")

@@ -65,17 +65,21 @@ def atomic_write(path: str, writer) -> None:
             os.unlink(tmp)
 
 
+def scores_path(log_directory: str, dataset_name: str) -> str:
+    return os.path.join(log_directory, f"{dataset_name}_scores.npy")
+
+
 def save_scores(log_directory: str, dataset_name: str,
                 scores: np.ndarray) -> str:
     os.makedirs(log_directory, exist_ok=True)
-    path = os.path.join(log_directory, f"{dataset_name}_scores.npy")
+    path = scores_path(log_directory, dataset_name)
     atomic_write(path, lambda f: np.save(f, np.asarray(scores)))
     return path
 
 
 def load_scores(log_directory: str,
                 dataset_name: str) -> Optional[np.ndarray]:
-    path = os.path.join(log_directory, f"{dataset_name}_scores.npy")
+    path = scores_path(log_directory, dataset_name)
     if not os.path.exists(path):
         return None
     with open(path, "rb") as f:

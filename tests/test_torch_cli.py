@@ -191,12 +191,21 @@ def test_cli_without_card_raises_unless_cpu(tmp_path, monkeypatch):
                                    ["--fast_decode", "--n_devices", "2"],
                                    ["--model_parallel", "2"]])
 def test_unported_options_raise(tmp_path, monkeypatch, flags):
-    """What is not ported raises naming its item; ``--model CLIP-Linear``
-    and ``--fast_decode`` are ported, and with an unported option still
-    raise for that one."""
+    """What is not ported raises naming its item (``--model_parallel``);
+    ``--n_devices 2`` in one process raises naming the launcher, which
+    starts one process per device (no silent fall-back to one device).
+    ``--model CLIP-Linear`` and ``--fast_decode`` are ported, and with one
+    of those options still raise for it."""
     from mcm_tpu_torch.cli.eval_ood import main
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    if "--n_devices" in flags:
+        want = pytest.raises(ValueError, match="torch.distributed.run "
+                             "--standalone --nproc_per_node 2 -m "
+                             "mcm_tpu_torch.cli.eval_ood")
+    else:
+        want = pytest.raises(NotImplementedError,
+                             match="ROADMAP.md Queue 1, item 9b")
+    with want:
         main(["--device", "cpu", "--allow_random_weights"] + flags)
 
 

@@ -34,7 +34,7 @@ print(" ".join(names))
 
 #: modules the guard must reach by name (the walk finds every module; these
 #: are the entry points and the modules of the vit-Linear, serving,
-#: training and native-decode paths)
+#: training, native-decode and data-parallel paths)
 _NAMED = ("mcm_tpu_torch.models.vit", "mcm_tpu_torch.scores.msp",
           "mcm_tpu_torch.cli.eval_msp", "mcm_tpu_torch.cli.eval_ood",
           "mcm_tpu_torch.serve", "mcm_tpu_torch.serve_http",
@@ -44,7 +44,8 @@ _NAMED = ("mcm_tpu_torch.models.vit", "mcm_tpu_torch.scores.msp",
           "mcm_tpu_torch.tools.train_linear_probe",
           "mcm_tpu_torch.tools.train_attn_probe",
           "mcm_tpu_torch.runtime.native", "mcm_tpu_torch.ops.preprocess",
-          "mcm_tpu_torch.tools.serve_soak", "mcm_tpu_torch.tools.http_soak")
+          "mcm_tpu_torch.tools.serve_soak", "mcm_tpu_torch.tools.http_soak",
+          "mcm_tpu_torch.parallel.mesh", "mcm_tpu_torch.parallel.multihost")
 
 
 def test_port_imports_no_jax():

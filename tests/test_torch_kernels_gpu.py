@@ -27,7 +27,10 @@ trainable attention's gradients must be bit-identical to the math path's
 the bsd plain version; ``matmul_f32``'s forward with a gradient is
 bit-identical to the product without, and its input gradients are within
 bf16's rounding (2^-8 relative, plus 1e-4 of the largest value for fp32
-summation order) of an IEEE fp32 reference.  Not a kernel, but checked on
+summation order) of an IEEE fp32 reference.  Data parallelism: one batch
+through a gloo group of one process is bit-equal to the one-process step;
+ODIN's gradient pass in sub-batches is held to 2e-5 of the largest score
+against one pass.  Not a kernel, but checked on
 the card's host: the native JPEG decoder builds, loads and passes its
 self-test there.
 """
@@ -761,6 +764,64 @@ def test_odin_gradient_pass_launches_no_kernel(cuda):
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == before[:-1] + [before[-1] + 1]
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-6)
+
+
+def test_odin_sub_batches_match_the_unsplit_pass_on_the_card(cuda,
+                                                             monkeypatch):
+    """ODIN on a batch of 128 on the card with its gradient pass in four
+    sub-batches of 32 against one pass of 128 rows: within the ODIN tests'
+    tolerance, 2e-5 of the largest score (``tests/test_torch_odin.py``)."""
+    from mcm_tpu_torch.parallel import EvalStep, eval_step
+    cfg, params = _tiny_clip()
+    rng = np.random.default_rng(9)
+    images = torch.from_numpy(rng.integers(0, 256, size=(128, 32, 32, 3),
+                                           dtype=np.uint8)).to(cuda)
+    _, text = _odin_inputs(cuda)
+    step = EvalStep(cfg, score="odin", device=cuda, noise_magnitude=0.002)
+    model = step.put_params(params)
+    assert eval_step.ODIN_GRAD_ROWS >= 128
+    whole = step.score(model, images, text)
+    monkeypatch.setattr(eval_step, "ODIN_GRAD_ROWS", 32)
+    split = step.score(model, images, text)
+    assert bool(torch.isfinite(split).all())
+    torch.testing.assert_close(split, whole, rtol=0,
+                               atol=2e-5 * float(whole.abs().max()))
+
+
+def test_world_size_1_group_step_is_the_one_process_step(cuda):
+    """A gloo group of one process (a launcher's world of one), the step on
+    its mesh's card: one batch through the stripe and the gather, bit-equal
+    to the one-process step on the same batch (the bsd and MCM kernels)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mcm_tpu_torch.parallel import EvalStep, multihost
+    from mcm_tpu_torch.parallel.mesh import make_mesh
+    cfg, params = _tiny_clip()
+    rng = np.random.default_rng(10)
+    images = rng.integers(0, 256, size=(8, 32, 32, 3), dtype=np.uint8)
+    _, text = _odin_inputs(cuda)
+    step = EvalStep(cfg, device=cuda)
+    want = step.score(step.put_params(params), step.put_batch(images),
+                      text).cpu().numpy()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, device="cuda")
+        assert (mesh.data, multihost.process_count()) == (1, 1)
+        gstep = EvalStep(cfg, mesh=mesh)
+        assert gstep.device == torch.device("cuda", 0)
+        lo, hi = multihost.batch_stripe(8)
+        out = gstep.score(gstep.put_params(params),
+                          gstep.put_batch(images[lo:hi]), text)
+        got = multihost.assemble_global_outputs([out.cpu().numpy()], [8], 8)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got, want)
 
 
 # -- the vit-Linear tower and the serving detector ------------------------------

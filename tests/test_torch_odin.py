@@ -31,6 +31,7 @@ from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models.convert import from_jax_params
 from mcm_tpu_torch.ops import attention, mcm_score
 from mcm_tpu_torch.parallel import EvalStep
+from mcm_tpu_torch.parallel import eval_step
 from mcm_tpu_torch.parallel.eval_step import _odin_safe
 from mcm_tpu_torch.scores import odin as todin
 
@@ -148,6 +149,40 @@ def test_odin_score_matches_jax_eval_step(inputs, eps, T):
                      step.put_replicated(text)).numpy()
     assert got.shape == want.shape == (6,)
     np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-5 * np.abs(want).max())
+
+
+def test_odin_gradient_pass_splits_a_large_batch(inputs, monkeypatch):
+    """A batch of ``ODIN_GRAD_ROWS`` + 5 images takes its gradient pass in
+    two sub-batches (128 and 5 rows): its scores equal the unsplit pass's
+    and JAX's one-pass scores at the ODIN tolerance."""
+    params, text, _, _ = inputs
+    n = eval_step.ODIN_GRAD_ROWS + 5
+    images = np.random.default_rng(4).integers(0, 256, size=(n, 32, 32, 3),
+                                               dtype=np.uint8)
+    rows = []
+    real = eval_step.odin_perturb
+
+    def spy(logits_fn, x, noise_magnitude, std):
+        rows.append(x.shape[0])
+        return real(logits_fn, x, noise_magnitude, std=std)
+
+    monkeypatch.setattr(eval_step, "odin_perturb", spy)
+    split = _score(params, images, text, "odin", 0.002)
+    assert rows == [eval_step.ODIN_GRAD_ROWS, 5]
+    monkeypatch.setattr(eval_step, "ODIN_GRAD_ROWS", n)
+    rows.clear()
+    whole = _score(params, images, text, "odin", 0.002)
+    assert rows == [n]
+    jstep = JEvalStep(CFG, score="odin", precision=Precision.parity(),
+                      mesh=make_mesh(1), noise_magnitude=0.002)
+    want = np.asarray(jstep.score(jstep.put_params(params),
+                                  jstep.put_batch(images),
+                                  jstep.put_replicated(jnp.asarray(text))))
+    assert split.shape == whole.shape == want.shape == (n,)
+    np.testing.assert_allclose(split, whole, rtol=0,
+                               atol=2e-5 * np.abs(whole).max())
+    np.testing.assert_allclose(split, want, rtol=0,
                                atol=2e-5 * np.abs(want).max())
 
 

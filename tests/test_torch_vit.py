@@ -398,6 +398,34 @@ def test_odin_matches_jax(step_inputs, eps, T):
                                atol=2e-5 * np.abs(want).max())
 
 
+def test_odin_gradient_pass_splits_a_large_batch(step_inputs, monkeypatch):
+    """vit-Linear ODIN on ``ODIN_GRAD_ROWS`` + 3 images: two gradient
+    sub-batches, the scores equal the unsplit pass's and JAX's at the ODIN
+    tolerance."""
+    cfg, params, _ = step_inputs
+    n = teval_step.ODIN_GRAD_ROWS + 3
+    images = np.random.default_rng(7).integers(0, 256, size=(n, 32, 32, 3),
+                                               dtype=np.uint8)
+    rows = []
+    real = teval_step.odin_perturb
+
+    def spy(logits_fn, x, noise_magnitude, std):
+        rows.append(x.shape[0])
+        return real(logits_fn, x, noise_magnitude, std=std)
+
+    monkeypatch.setattr(teval_step, "odin_perturb", spy)
+    split = _port_step(cfg, params, images, "odin", 2.0, eps=0.01)
+    assert rows == [teval_step.ODIN_GRAD_ROWS, 3]
+    monkeypatch.setattr(teval_step, "ODIN_GRAD_ROWS", n)
+    whole = _port_step(cfg, params, images, "odin", 2.0, eps=0.01)
+    want = _jax_step(cfg, params, images, "odin", 2.0, eps=0.01)
+    assert split.shape == whole.shape == want.shape == (n,)
+    np.testing.assert_allclose(split, whole, rtol=0,
+                               atol=2e-5 * np.abs(whole).max())
+    np.testing.assert_allclose(split, want, rtol=0,
+                               atol=2e-5 * np.abs(want).max())
+
+
 def test_odin_scales_the_sign_by_clip_std(step_inputs, monkeypatch):
     """The reference quirk (``detection_util.py:141-143``): the gradient
     sign is divided by the CLIP std even on the vit-Linear branch, whose
