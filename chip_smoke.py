@@ -92,7 +92,17 @@
    holds.  Request bodies decode natively; the host's decode ms an image
    natively, through PIL and on the bulk pool are printed beside the p50 /
    p99 single-request latency and images/s, each with the card's name and
-   power limit.  Then ``tools.serve_soak`` and ``tools.http_soak`` at their
+   power limit.  Then serving on two replicas sharing card 0
+   (``OODDetector(n_devices=2, device="cuda:0")``, the same weights and
+   classes, buckets 2/8/64) against the one-replica detector on 100 ID
+   images: scores bit-equal or within the bucket tolerance (printed:
+   which), 12 bsd and 1 MCM launch a batch on each replica, equal
+   classes, the MicroBatcher over the two replicas; then ``python -m
+   mcm_tpu_torch.serve_http --n-devices 2 --device cuda:0`` in a process of
+   its own: 32 concurrent single-image requests, their p50 / p99, and its
+   ``/metrics`` naming two replicas on cuda:0 and the card's peak memory;
+   SIGTERM drains it to exit 0.  Then ``tools.serve_soak`` and
+   ``tools.http_soak`` at their
    own sizes (a few hundred requests each; 12 bsd per MCM launch and no
    other kernel), their p50 / p99 and rates printed with the card line.
    Training, after the maha run, on its ImageNet10 tree and the converted
@@ -127,6 +137,15 @@
    (c) ``--score maha`` on two ranks (templates from the gathered train
    features, in a directory of their own) within the same tolerance of the
    single-process maha run.
+   dp train phase: ``tools.finetune_clip`` under the launcher in the
+   smoke's ``--train-rank`` mode, two ranks sharing card 0, full ViT-B/16,
+   a global ``-b 64``, one epoch over the 800 ImageNet10 train images (no
+   launch: the math-path attention): its epoch loss within 1e-3 relative
+   of the single-process fine-tune's at the same seed, rank 0 alone
+   writing the checkpoint and its train state, each rank's ms a step,
+   collective ms (gather and gradient all-reduce with their host copies)
+   and peak memory; then ``--model CLIP-Linear`` on that checkpoint (12 bsd
+   and 1 MCM launch a batch).
 4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
    turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
@@ -134,7 +153,9 @@
    of the knob's attention kernel per image batch (no bsd, one mcm), and
    holds each setting's features on one batch against the default path's.
    Then the bench once with default knobs at B = 512 with the
-   decode-included pass (native decode), and its row, and once more with
+   decode-included pass (native decode), and its row (``n_devices``: every
+   visible card, one here, its rate printed beside the single-device
+   bench's 3244.3 img/s), and once more with
    that pass through PIL (``MCM_TPU_DISABLE_NATIVE=1``): both e2e rates,
    decode alone and the host→device ceiling printed with the card line.
 5. Tools phase: the three attention tools (``mcm_tpu_torch.tools``
@@ -143,8 +164,9 @@
    kernel they reach must be launched.
 6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line (its
    ``launches``: bsd and MCM summed over the slice phase's CLI runs (the
-   decode-route runs included), training, serving and soak runs and every
-   rank of the dp phase, the knob
+   decode-route runs included), training, serving (both replicas) and soak
+   runs, every rank of the dp phase and the CLIP-Linear run on the
+   two-rank checkpoint, the knob
    kernels over their bench runs, the tools' kernels over their tool's
    run), the card line again and, last,
    ``{"ok": true, "device": {...}}``.
@@ -921,7 +943,7 @@ def slice_phase(work: str) -> dict:
             + route_launches["bsd_attention"],
             "mcm_score": launches["mcm_score"] + route_launches["mcm_score"]}
     for fn in (maha_run, train_runs, odin_run, accuracy_resume_runs,
-               vit_runs, serve_run, soak_runs):
+               vit_runs, serve_run, serve_mesh_run, soak_runs):
         for k, v in fn(work, data, ckpt).items():
             path[k] += v
     return path
@@ -1623,6 +1645,223 @@ def serve_run(work: str, data: str, ckpt: str) -> dict:
             "mcm_score": launches["mcm_score"]}
 
 
+SERVE_MESH_BUCKETS = (2, 8, 64)
+N_MESH_IMAGES, N_MESH_HTTP = 100, 32
+HTTP_START_S = 300
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_detector(ckpt: str, n_devices: int):
+    """The converted CLIP weights, 1000 ImageNet classes, buckets 2/8/64,
+    ``n_devices`` replicas on card 0."""
+    import warnings
+
+    from mcm_tpu_torch.data.labels import get_test_labels
+    from mcm_tpu_torch.serve import OODDetector
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        det = OODDetector(class_names=get_test_labels("ImageNet"),
+                          ckpt_dir=ckpt, allow_random_weights=True,
+                          batch_sizes=SERVE_MESH_BUCKETS,
+                          n_devices=n_devices, device="cuda:0")
+    check(not [w for w in caught if "RANDOM WEIGHTS" in str(w.message)],
+          "the detector ran random weights")
+    return det
+
+
+def _http_mesh_round(work: str, ckpt: str, blobs) -> dict:
+    """``python -m mcm_tpu_torch.serve_http --n-devices 2 --device cuda:0``
+    in a process of its own: once ``/healthz`` answers, 32 concurrent
+    single-image requests, then ``/metrics`` (its replicas and the card's
+    peak memory), then SIGTERM, which drains it to exit 0."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    port = _free_port()
+    out = os.path.join(work, "serve_http_mesh.log")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    with open(out, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mcm_tpu_torch.serve_http",
+             "--in_dataset", "ImageNet", "--ckpt-dir", ckpt,
+             "--allow-random-weights", "--host", "127.0.0.1", "--port",
+             str(port), "--batch-buckets",
+             ",".join(str(b) for b in SERVE_MESH_BUCKETS),
+             "--n-devices", "2", "--device", "cuda:0"],
+            cwd=work, env=env, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        t = time.perf_counter()
+        while True:
+            check(proc.poll() is None, f"serve_http exited {proc.returncode}"
+                  f" before it answered: {open(out).read()[-3000:]}")
+            check(time.perf_counter() - t < HTTP_START_S,
+                  f"serve_http did not answer /healthz in {HTTP_START_S}s")
+            try:
+                if _http(port, "GET", "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        start_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with ThreadPoolExecutor(N_MESH_HTTP) as pool:
+            replies = list(pool.map(
+                lambda b: _http(port, "POST", "/v1/score", b),
+                blobs[:N_MESH_HTTP]))
+        wall = time.perf_counter() - t
+        metrics = _http(port, "GET", "/metrics")[1].decode()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    log = open(out).read()
+    check(rc == 0, f"serve_http exited {rc} after SIGTERM: {log[-3000:]}")
+    check(all(r[0] == 200 for r in replies),
+          f"serve_http statuses {[r[:2] for r in replies]}")
+    check('mcm_replicas{device="cuda:0"} 2' in metrics,
+          f"/metrics does not name two replicas on cuda:0:\n{metrics}")
+    check("devices cuda:0, cuda:0" in log,
+          f"the startup log does not name the devices: {log[-2000:]}")
+    mem = re.search(r'mcm_device_max_memory_allocated_bytes\{device='
+                    r'"cuda:0"\} (\d+)', metrics)
+    check(mem is not None, f"/metrics has no peak memory:\n{metrics}")
+    lat = np.sort([r[2] for r in replies])
+    return {"start_to_healthz_s": start_s, "requests": len(replies),
+            "wall_s": wall, "images_per_s": len(replies) / wall,
+            "single_latency_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "single_latency_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "server_max_memory_allocated_bytes": int(mem.group(1)),
+            "scores": [json.loads(r[1])["scores"][0] for r in replies]}
+
+
+def serve_mesh_run(work: str, data: str, ckpt: str) -> dict:
+    """Serving on two replicas sharing card 0 (``OODDetector(n_devices=2,
+    device="cuda:0")``, the converted weights, buckets 2/8/64) against the
+    one-device detector on the same 100 ID images: the scores bit-equal or
+    within SERVE_RTOL / SERVE_ATOL (printed: which), 12 bsd and 1 MCM
+    launch per replica per batch, the classes equal; the MicroBatcher over
+    the two replicas; then an HTTP round of ``serve_http --n-devices 2
+    --device cuda:0`` in its own process with its client p50 / p99 and the
+    server's peak memory."""
+    import glob
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mcm_tpu_torch.serve import MicroBatcher
+    from mcm_tpu_torch.serve_http import decode_image_bytes
+
+    counters = _all_counters()
+    paths = sorted(glob.glob(os.path.join(data, "ImageNet", "val", "*",
+                                          "*.jpg")))[:N_MESH_IMAGES]
+    blobs = []
+    for path in paths:
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    images = np.stack([decode_image_bytes(b) for b in blobs])
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    two = _mesh_detector(ckpt, 2)
+    build_s = time.perf_counter() - t
+    check(two.step.mesh.devices == (torch.device("cuda", 0),) * 2,
+          f"two replicas on {two.step.mesh.devices}")
+    one = _mesh_detector(ckpt, 1)
+    for det in (two, one):
+        det.warmup(include_features=True)
+
+    def scored(det):
+        for fn in counters.values():
+            fn.launches = 0
+        got = det.score_images(images)
+        torch.cuda.synchronize()
+        return got, {k: fn.launches for k, fn in counters.items()}
+
+    s2, launches = scored(two)
+    s1, launches1 = scored(one)
+    chunks = -(-N_MESH_IMAGES // SERVE_MESH_BUCKETS[-1])
+    layers = two.step.cfg.vision.layers
+    _check_only(launches, {"bsd_attention": 2 * layers * chunks,
+                           "mcm_score": 2 * chunks},
+                f"two replicas over {chunks} batches (per replica: "
+                f"{layers} bsd and 1 MCM a batch)")
+    _check_only(launches1, {"bsd_attention": layers * chunks,
+                            "mcm_score": chunks},
+                f"one replica over {chunks} batches")
+    bit_equal = bool(np.array_equal(s2, s1))
+    err = np.abs(s2 - s1)
+    check(bool(np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(s1))),
+          f"two replicas vs one: max delta {err.max()}")
+    idx2, _ = two.classify_images(images)
+    idx1, _ = one.classify_images(images)
+    check(np.array_equal(idx2, idx1), "two replicas classify otherwise")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the MicroBatcher over the two replicas: concurrent single images
+    for fn in counters.values():
+        fn.launches = 0
+    with MicroBatcher(two, max_wait_ms=5.0) as mb:
+        with ThreadPoolExecutor(16) as pool:
+            futs = list(pool.map(mb.submit, images[:32]))
+        batched = np.array([f.result(timeout=120) for f in futs], np.float32)
+    torch.cuda.synchronize()
+    mb_launches = {k: fn.launches for k, fn in counters.items()}
+    _check_only(mb_launches, {"bsd_attention": 2 * layers * mb.n_batches,
+                              "mcm_score": 2 * mb.n_batches},
+                f"the MicroBatcher's {mb.n_batches} batches on two replicas")
+    mb_err = np.abs(batched - s1[:32])
+    check(bool(np.all(mb_err <= SERVE_ATOL + SERVE_RTOL * np.abs(s1[:32]))),
+          f"MicroBatcher on two replicas: max delta {mb_err.max()}")
+    bucket_ms = {}
+    for b in SERVE_MESH_BUCKETS:
+        bucket_ms[b] = {}
+        for name, det in (("two", two), ("one", one)):
+            zero = det.step.put_batch(np.zeros((b, 224, 224, 3), np.uint8))
+            bucket_ms[b][name] = cuda_ms(lambda: det._score_device(zero),
+                                         iters=10)
+    del two, one
+    torch.cuda.empty_cache()
+    http = _http_mesh_round(work, ckpt, blobs)
+    http_err = np.abs(np.array(http.pop("scores"), np.float32) - s1[:N_MESH_HTTP])
+    check(bool(np.all(http_err <= SERVE_ATOL
+                      + SERVE_RTOL * np.abs(s1[:N_MESH_HTTP]))),
+          f"serve_http on two replicas: max delta {http_err.max()}")
+    card = card_line()
+    verdict = ("bit-equal" if bit_equal else
+               f"within rtol {SERVE_RTOL} / atol {SERVE_ATOL} (max delta "
+               f"{float(err.max())})")
+    print(f"serving on two replicas of card 0: scores {verdict} to one "
+          f"replica's over {N_MESH_IMAGES} images; launches {launches}; "
+          f"max_memory_allocated_bytes {peak} with both detectors built "
+          f"({card})", flush=True)
+    print(f"serve_http --n-devices 2 --device cuda:0: p50 "
+          f"{http['single_latency_p50_ms']:.3f} ms, p99 "
+          f"{http['single_latency_p99_ms']:.3f} ms over {N_MESH_HTTP} "
+          f"concurrent requests, server peak "
+          f"{http['server_max_memory_allocated_bytes']} bytes ({card})",
+          flush=True)
+    emit({"phase": "serve_mesh", "buckets": list(SERVE_MESH_BUCKETS),
+          "devices": ["cuda:0", "cuda:0"], "build_s": build_s,
+          "images": N_MESH_IMAGES, "scores_bit_equal": bit_equal,
+          "max_delta_vs_one_replica": float(err.max()),
+          "launches": launches, "launches_one_replica": launches1,
+          "microbatcher": {"batches": mb.n_batches, "images": mb.n_images,
+                           "launches": mb_launches,
+                           "max_delta": float(mb_err.max())},
+          "device_score_ms_by_bucket": bucket_ms,
+          "max_memory_allocated_bytes_both_detectors": peak,
+          "http": dict(http, max_delta=float(http_err.max())), "card": card})
+    return {k: launches[k] + mb_launches[k]
+            for k in ("bsd_attention", "mcm_score")}
+
+
 def soak_runs(work: str, data: str, ckpt: str) -> dict:
     """``tools.serve_soak`` and ``tools.http_soak`` at their own sizes on
     the card (CLIP ViT-B/16, random weights, 1000 classes; a few hundred
@@ -1776,6 +2015,13 @@ TRAIN_STEPS = 5                  # steps of the vjp-vs-xla comparison
 # miswired attention would differ by O(1))
 STEP_LOSS_REL_TOL = 5e-4
 STEP_GRAD_REL_TOL = 0.25
+# the fine-tune on two ranks against one process, same seed and data: the
+# features of 32-row stripes may round otherwise than of 64 rows, and the
+# gradient is the sum of two ranks' partial sums (another order than one
+# product's); the step routes' bound above, doubled for an epoch's mean
+DP_TRAIN_LOSS_REL_TOL = 1e-3
+#: the single-process fine-tune's epoch, which the two-rank one is held to
+FINETUNE_ONE_PROCESS: dict = {}
 
 
 def _quiet_run(work: str, argv, cli_main) -> tuple:
@@ -1860,6 +2106,10 @@ def finetune_run(work: str, data: str, ckpt: str) -> dict:
     check(src is not None and out in src.group(1),
           f"the CLIP-Linear log does not name {out}: "
           f"{src.group(0) if src else None}")
+    FINETUNE_ONE_PROCESS.update(epoch_loss=float(m.group(1)),
+                                epoch_s=float(m.group(3)), steps=steps,
+                                max_memory_allocated_bytes=run[
+                                    "max_memory_allocated_bytes"])
     emit({"phase": "train_finetune", "in_dataset": "ImageNet10",
           "batch": TRAIN_BATCH, "train_images": n_train, "steps": steps,
           "epoch_loss": float(m.group(1)), "epoch_s": float(m.group(3)),
@@ -2038,6 +2288,11 @@ def train_runs(work: str, data: str, ckpt: str) -> dict:
 
 # -- 4. bench phase --------------------------------------------------------------
 
+#: the bench's B = 512 rate with default knobs on an H100 80GB HBM3 at
+#: 700 W while the bench was single-device (PERF.md §5): the witness the
+#: one-card mesh's rate is printed beside, not a bound
+BENCH_SINGLE_DEVICE_IMG_PER_S = 3244.3
+
 _BENCH_ENV = ("MCM_BENCH_CKPT", "MCM_BENCH_BATCH", "MCM_BENCH_ATTN",
               "MCM_BENCH_MLP", "MCM_BENCH_E2E", "MCM_BENCH_SCALES",
               DISABLE_NATIVE)
@@ -2052,18 +2307,19 @@ DP_RTOL, DP_ATOL = SERVE_RTOL, SERVE_ATOL
 DP_TIMEOUT_S = 600
 
 
-def _launch_ranks(work: str, name: str, nproc: int, argv) -> tuple:
+def _launch_ranks(work: str, name: str, nproc: int, argv,
+                  mode: str = "--dp-rank") -> tuple:
     """``python -m torch.distributed.run --standalone --nproc_per_node
-    nproc`` over this script in its rank mode (``--dp-rank``: the eval
-    CLI's ``main`` on ``argv``, with this rank's launch counts, wall and
-    peak memory written beside it), from ``work``; returns each rank's
-    report and the launch's wall seconds.  Output goes to a file, read
-    back on failure."""
+    nproc`` over this script in a rank mode (``--dp-rank``: the eval CLI's
+    ``main`` on ``argv``; ``--train-rank``: ``tools.finetune_clip``'s; each
+    with this rank's launch counts, wall and peak memory written beside
+    it), from ``work``; returns each rank's report and the launch's wall
+    seconds.  Output goes to a file, read back on failure."""
     report = os.path.join(work, f"dp_{name}")
     out = os.path.join(work, f"dp_{name}.log")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(nproc), os.path.abspath(__file__),
-           "--dp-rank", report, *argv]
+           mode, report, *argv]
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
         __file__)))
     t = time.perf_counter()
@@ -2104,6 +2360,180 @@ def dp_rank(report: str, argv) -> int:
                    "max_memory_allocated_bytes":
                        torch.cuda.max_memory_allocated()}, f)
     return 0
+
+
+class _TimedStep:
+    """A train step that records its host ms (ending in a synchronize) and
+    the seconds of its collectives (``comm_s``, passed through to the loop,
+    which reads and resets it each epoch)."""
+
+    def __init__(self, step):
+        self.step = step
+        self.ms, self.comm_ms = [], []
+
+    @property
+    def comm_s(self):
+        return self.step.comm_s
+
+    @comm_s.setter
+    def comm_s(self, value):
+        self.step.comm_s = value
+
+    def __call__(self, *args):
+        comm = self.step.comm_s
+        t = time.perf_counter()
+        out = self.step(*args)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t) * 1e3)
+        self.comm_ms.append((self.step.comm_s - comm) * 1e3)
+        return out
+
+
+def train_rank(report: str, argv) -> int:
+    """One rank of a fine-tune launch: ``tools.finetune_clip``'s ``main``
+    on ``argv`` (what ``-m mcm_tpu_torch.tools.finetune_clip`` runs), with
+    every launch count set to 0 just before it and read just after, each
+    step's ms and collective ms, the checkpoint files this rank wrote, its
+    peak memory and the epoch line (rank 0's)."""
+    import contextlib
+    import io
+
+    from mcm_tpu_torch.tools import finetune_clip
+    from mcm_tpu_torch.train import loop
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    steps, writes = [], {"params": 0, "train_state": 0}
+    make, save_params, save_state = (loop.make_train_step, loop.save_params,
+                                     loop.save_train_state)
+
+    def timed(*a, **k):
+        init_state, step = make(*a, **k)
+        steps.append(_TimedStep(step))
+        return init_state, steps[-1]
+
+    def counting(kind, fn):
+        def f(*a, **k):
+            writes[kind] += 1
+            return fn(*a, **k)
+        return f
+
+    loop.make_train_step = timed
+    loop.save_params = counting("params", save_params)
+    loop.save_train_state = counting("train_state", save_state)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            finetune_clip.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        (loop.make_train_step, loop.save_params,
+         loop.save_train_state) = make, save_params, save_state
+        print(buf.getvalue(), end="", flush=True)
+    wall = time.perf_counter() - t
+    rank = int(os.environ["RANK"])
+    m = re.search(r"epoch 1/1: loss (\S+)  \((\d+) steps, ([0-9.]+)s; "
+                  r"collectives ([0-9.]+)s\)", buf.getvalue())
+    with open(f"{report}.rank{rank}.json", "w") as f:
+        json.dump({"rank": rank, "world": int(os.environ["WORLD_SIZE"]),
+                   "device": f"cuda:{torch.cuda.current_device()}",
+                   "launches": {n: fn.launches for n, fn in counters.items()},
+                   "cli_wall_s": wall, "writes": writes,
+                   "step_ms": steps[0].ms, "collective_ms": steps[0].comm_ms,
+                   "epoch": None if m is None else {
+                       "loss": float(m.group(1)), "steps": int(m.group(2)),
+                       "s": float(m.group(3)),
+                       "collectives_s": float(m.group(4))},
+                   "max_memory_allocated_bytes":
+                       torch.cuda.max_memory_allocated()}, f)
+    return 0
+
+
+def dp_train_phase(work: str) -> dict:
+    """``tools.finetune_clip`` under the launcher: two ranks sharing card 0
+    (``--device cuda:0 --n_devices 2``), full ViT-B/16, a global ``-b 64``
+    (32 rows a rank), one epoch over the 800 ImageNet10 train images, the
+    math-path attention (no launch); its epoch loss within
+    DP_TRAIN_LOSS_REL_TOL of the single-process fine-tune's (same seed),
+    rank 0 alone writing the checkpoint, ms a step, collective ms and peak
+    memory per rank; then ``--model CLIP-Linear`` on that checkpoint.
+    Returns its bsd and MCM launches."""
+    data = os.path.join(work, "datasets")
+    ckpt = os.path.join(work, "ckpt")
+    out = os.path.join(work, "finetuned_dp_ImageNet10.npz")
+    n_train = MAHA_TRAIN_PER_CLASS * 10
+    steps = n_train // TRAIN_BATCH
+    reports, wall = _launch_ranks(work, "train_ws2", 2, [
+        "--in_dataset", "ImageNet10", "--root-dir", data, "--CLIP_ckpt",
+        "ViT-B/16", "-b", str(TRAIN_BATCH), "--epochs", "1", "--ckpt_dir",
+        ckpt, "--allow_random_weights", "--num_workers", "4", "--out", out,
+        "--device", "cuda:0", "--n_devices", "2"], mode="--train-rank")
+    for r in reports:
+        _check_only(r["launches"], {}, f"fine-tune rank {r['rank']} "
+                                       f"(math-path attention)")
+        check(len(r["step_ms"]) == steps,
+              f"rank {r['rank']} took {len(r['step_ms'])} steps, want {steps}")
+    r0, r1 = reports
+    check(r0["writes"] == {"params": 1, "train_state": 1}
+          and r1["writes"] == {"params": 0, "train_state": 0},
+          f"checkpoint writes: rank 0 {r0['writes']}, rank 1 {r1['writes']}")
+    check(r0["epoch"] is not None and r1["epoch"] is None,
+          f"epoch lines: rank 0 {r0['epoch']}, rank 1 {r1['epoch']}")
+    check(os.path.exists(out) and os.path.exists(out + ".train_state.npz"),
+          f"the two-rank fine-tune wrote no {out} (+ .train_state.npz)")
+    one = FINETUNE_ONE_PROCESS
+    gap = abs(r0["epoch"]["loss"] - one["epoch_loss"]) / abs(one["epoch_loss"])
+    check(gap <= DP_TRAIN_LOSS_REL_TOL,
+          f"two-rank epoch loss {r0['epoch']['loss']} vs one process "
+          f"{one['epoch_loss']}: relative gap {gap} > {DP_TRAIN_LOSS_REL_TOL}")
+
+    name = "chip_smoke_clip_linear_dp"
+    ev = cli_run(work, _cli_argv(data, ckpt, name, "--in_dataset",
+                                 "ImageNet10", "--score", "MCM", "-b",
+                                 str(BATCH), "--model", "CLIP-Linear",
+                                 "--finetune_ckpt", out))
+    n_batches = -(-MAHA_N_VAL // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
+    _check_only(ev["launches"], {"bsd_attention": 12 * n_batches,
+                                 "mcm_score": n_batches},
+                f"CLIP-Linear on the two-rank checkpoint, {n_batches} "
+                f"image batches")
+    log_dir = os.path.join(work, "results", "ImageNet10", "MCM",
+                           f"CLIP-Linear_ViT-B/16_T_1_ID_{name}")
+    _check_scores(log_dir, dict([("ID_ImageNet10", MAHA_N_VAL)]
+                                + [(o, N_OOD) for o in OOD_SETS]))
+    card = card_line()
+    per_rank = []
+    for r in reports:
+        # the first step builds the allocator's pools: the steady steps
+        ms = float(np.median(r["step_ms"][1:]))
+        comm = float(np.median(r["collective_ms"][1:]))
+        per_rank.append({"rank": r["rank"], "step_ms_median": ms,
+                         "collective_ms_median": comm,
+                         "collective_share": comm / ms,
+                         "max_memory_allocated_bytes":
+                             r["max_memory_allocated_bytes"],
+                         "cli_wall_s": r["cli_wall_s"]})
+        print(f"fine-tune rank {r['rank']} of 2 on card 0: "
+              f"{ms:.1f} ms a step (median of {steps - 1}), collectives "
+              f"{comm:.1f} ms ({100 * comm / ms:.1f} %), "
+              f"max_memory_allocated_bytes {r['max_memory_allocated_bytes']}"
+              f" ({card})", flush=True)
+    print(f"fine-tune on two ranks: epoch loss {r0['epoch']['loss']} vs one "
+          f"process {one['epoch_loss']}, relative gap {gap} (bound "
+          f"{DP_TRAIN_LOSS_REL_TOL}); epoch {r0['epoch']['s']} s vs "
+          f"{one['epoch_s']} s ({card})", flush=True)
+    emit({"phase": "dp_train", "batch": TRAIN_BATCH, "ranks": 2,
+          "device": "cuda:0", "steps": steps, "launch_wall_s": wall,
+          "epoch": r0["epoch"], "one_process": one,
+          "loss_rel_gap": gap, "loss_rel_tol": DP_TRAIN_LOSS_REL_TOL,
+          "writes": [r["writes"] for r in reports], "per_rank": per_rank,
+          "clip_linear": {"launches": ev["launches"],
+                          "results": ev["results"],
+                          "cli_wall_s": ev["cli_wall_s"]},
+          "card": card})
+    return {"bsd_attention": ev["launches"]["bsd_attention"],
+            "mcm_score": ev["launches"]["mcm_score"]}
 
 
 def _score_files(log_dir: str, names) -> dict:
@@ -2345,6 +2775,17 @@ def bench_phase() -> dict:
         "value", "e2e_img_per_sec", "e2e_decode_img_per_sec",
         "e2e_transfer_ceiling_img_per_sec")),
         f"default bench row lacks a rate: {row}")
+    # the mesh of every visible card: one on this host, and that path is
+    # the single-device one (its rate is the witness)
+    check(row["n_devices"] == torch.cuda.device_count(),
+          f"the bench ran on {row['n_devices']} device(s); "
+          f"{torch.cuda.device_count()} card(s) are visible")
+    print(f"bench B = {row['batch']} default knobs, n_devices "
+          f"{row['n_devices']}: {row['value']} img/s a card, windows "
+          f"{row['window_img_per_sec']} (spread {row['window_spread_pct']} "
+          f"%), {100 * (row['value'] / BENCH_SINGLE_DEVICE_IMG_PER_S - 1):+.1f}"
+          f" % on the single-device bench's {BENCH_SINGLE_DEVICE_IMG_PER_S} "
+          f"({card_line()})", flush=True)
     emit({"phase": "bench_default", "launches": launches, "row": row})
 
     # the same bench with its e2e pass decoding through PIL, in this call
@@ -2434,6 +2875,8 @@ def main(argv=None) -> int:
         return 2
     if argv[:1] == ["--dp-rank"]:
         return dp_rank(argv[1], argv[2:])
+    if argv[:1] == ["--train-rank"]:
+        return train_rank(argv[1], argv[2:])
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2455,7 +2898,11 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         for k, v in dp_phase(work).items():
             launches[k] += v
-    walls["dp"] = time.perf_counter() - t
+        walls["dp"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for k, v in dp_train_phase(work).items():
+            launches[k] += v
+    walls["dp_train"] = time.perf_counter() - t
     t = time.perf_counter()
     launches.update(bench_phase())
     walls["bench"] = time.perf_counter() - t

@@ -1,17 +1,20 @@
-"""Throughput bench: CLIP ViT-B/16 ImageNet-1k MCM eval on one CUDA card.
+"""Throughput bench: CLIP ViT-B/16 ImageNet-1k MCM eval over the CUDA cards.
 
     python -m mcm_tpu_torch.bench
 
 Measures the steady-state device program of the eval hot loop — uint8
 batch → normalize → ViT-B/16 forward → MCM score against 1000 cached class
-embeddings — on the card (weight values do not change throughput: random
-weights from seed 0, so the bench runs without checkpoints).  The port of
-the JAX package's ``bench.py``, with its structure and JSON keys; one
-device and no mesh (under a launcher of several processes it raises: the
-rate per card over ranks is ``ROADMAP.md`` Queue 1, item 9a-bench).
+embeddings — on every visible card (weight values do not change
+throughput: random weights from seed 0, so the bench runs without
+checkpoints).  The port of the JAX package's ``bench.py``, with its
+structure and JSON keys: one process over a mesh of every visible card
+(:func:`~mcm_tpu_torch.parallel.mesh.make_local_mesh`), a model replica on
+each, every batch split into one stripe per card, and every rate divided
+by the card count (``n_devices`` in the row).  It is one process: under
+``torch.distributed.run`` it raises.
 
 Prints ONE JSON line; headline keys:
-  metric/value/unit  device-program throughput (best window)
+  metric/value/unit  device-program throughput per card (best window)
   vs_baseline        vs an A100 ESTIMATE (``vs_baseline_basis`` says so:
                      the reference publishes no numbers — BASELINE.md)
   mfu_pct            achieved model FLOP/s over the H100's dense bf16 peak
@@ -54,6 +57,8 @@ import numpy as np
 import torch
 
 from mcm_tpu_torch.config import CLIP_CONFIGS, Precision, resolve_device
+from mcm_tpu_torch.parallel.eval_step import to_host
+from mcm_tpu_torch.parallel.mesh import make_local_mesh
 
 A100_REFERENCE_IMG_PER_SEC = 1100.0
 H100_PEAK_BF16_TFLOPS = 989.0
@@ -249,14 +254,16 @@ def bench_precision():
     return precision
 
 
-def build_step(ckpt_name: str, precision, device, rng):
+def build_step(ckpt_name: str, precision, device, rng, mesh=None):
     """(cfg, step, params on the device, normalized random text) for one
-    checkpoint; weights from seed 0, text from ``rng``."""
+    checkpoint; weights from seed 0, text from ``rng``; over ``mesh`` when
+    given (a replica on each of its devices)."""
     from mcm_tpu_torch.models.init import init_clip
     from mcm_tpu_torch.parallel import EvalStep
 
     cfg = CLIP_CONFIGS[ckpt_name]()
-    step = EvalStep(cfg, score="MCM", precision=precision, device=device)
+    step = EvalStep(cfg, score="MCM", precision=precision, device=device,
+                    mesh=mesh)
     params = step.put_params(init_clip(0, cfg))
     text = rng.standard_normal((N_CLASSES, cfg.embed_dim)).astype(np.float32)
     text /= np.linalg.norm(text, axis=-1, keepdims=True)
@@ -273,9 +280,10 @@ def make_dev_batches(step, batch: int, rng, n: int = 4) -> list:
 
 def device_windows(step, params, text, dev_batches, batch: int,
                    n_windows: int, n_iters: int) -> list:
-    """Timed device-throughput windows (img/s each).  Batches are
-    dispatched one ahead of the readback, like the eval loop; the host
-    readback of each score vector (``.cpu()``) is the barrier."""
+    """Timed device-throughput windows (img/s each, over all devices).
+    Batches are dispatched one ahead of the readback, like the eval loop;
+    the host readback of each score vector (``to_host``) is the
+    barrier."""
     windows = []
     for _ in range(n_windows):
         pending = deque()
@@ -284,9 +292,9 @@ def device_windows(step, params, text, dev_batches, batch: int,
             pending.append(step.score(params, dev_batches[i % len(dev_batches)],
                                       text))
             if len(pending) > 1:
-                pending.popleft().cpu()
+                to_host(pending.popleft())
         while pending:
-            pending.popleft().cpu()
+            to_host(pending.popleft())
         dt = time.perf_counter() - t0
         windows.append(batch * n_iters / dt)
     return windows
@@ -296,23 +304,30 @@ def _mfu_pct(cfg, rate: float) -> float:
     return vit_flops_per_image(cfg) * rate / (H100_PEAK_BF16_TFLOPS * 1e12) * 100
 
 
-def main(device="cuda") -> dict:
-    """Run the bench on ``device`` (the card; tests pass "cpu"), print the
-    JSON row and return it."""
+def main(device="cuda", n_devices=None) -> dict:
+    """Run the bench on ``n_devices`` devices of ``device`` (None: every
+    visible card; tests pass "cpu" and a count), print the JSON row and
+    return it."""
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "the bench's rate per card over several processes is not "
-            "ported yet: ROADMAP.md Queue 1, item 9a-bench")
+        raise ValueError(
+            "the bench is one process over every visible card (its rates "
+            "are per card); start it without torch.distributed.run: "
+            "python -m mcm_tpu_torch.bench")
     device = resolve_device(device)
+    mesh = make_local_mesh(n_devices, device=device)
+    n_dev = mesh.data
     ckpt = os.environ.get("MCM_BENCH_CKPT", "ViT-B/16")
     batch = int(os.environ.get("MCM_BENCH_BATCH", BATCH))
+    if batch % n_dev:
+        raise ValueError(f"MCM_BENCH_BATCH={batch} does not split over "
+                         f"{n_dev} devices")
     precision = bench_precision()
     rng = np.random.default_rng(0)
 
-    cfg, step, params, text = build_step(ckpt, precision, device, rng)
+    cfg, step, params, text = build_step(ckpt, precision, device, rng, mesh)
     dev_batches = make_dev_batches(step, batch, rng)
     for i in range(WARMUP):
-        step.score(params, dev_batches[i % len(dev_batches)], text).cpu()
+        to_host(step.score(params, dev_batches[i % len(dev_batches)], text))
 
     contention = {}
     retries = {}
@@ -335,7 +350,8 @@ def main(device="cuda") -> dict:
     # best window = least interference from other users of the host
     device_rate = max(windows)
     spread = (max(windows) - min(windows)) / max(windows) * 100
-    mfu = _mfu_pct(cfg, device_rate)
+    per_chip = device_rate / n_dev
+    mfu = _mfu_pct(cfg, per_chip)
 
     # decode-included end-to-end, decomposed into decode / transfer / device
     e2e = ceiling = decode_rate = bound = decoder = None
@@ -370,9 +386,9 @@ def main(device="cuda") -> dict:
                                           text))
                 n_imgs += b.valid
                 if len(pending) > 1:
-                    pending.popleft().cpu()
+                    to_host(pending.popleft())
             while pending:
-                pending.popleft().cpu()
+                to_host(pending.popleft())
             return n_imgs / (time.perf_counter() - t0)
 
         # the same loop with decode removed: the host→device ceiling
@@ -387,14 +403,15 @@ def main(device="cuda") -> dict:
                 pending.append(step.score(
                     params, step.put_batch(host_batches[i % 3]), text))
                 if len(pending) > 1:
-                    pending.popleft().cpu()
+                    to_host(pending.popleft())
             while pending:
-                pending.popleft().cpu()
+                to_host(pending.popleft())
             return batch * n_ceiling_iters / (time.perf_counter() - t0)
 
-        decode_rate = round(run_guarded("decode", measure_decode), 1)
-        e2e = round(run_guarded("e2e", measure_e2e), 1)
-        ceiling = round(run_guarded("ceiling", measure_ceiling), 1)
+        # per card, as JAX's bench divides them
+        decode_rate = round(run_guarded("decode", measure_decode) / n_dev, 1)
+        e2e = round(run_guarded("e2e", measure_e2e) / n_dev, 1)
+        ceiling = round(run_guarded("ceiling", measure_ceiling) / n_dev, 1)
         # a reference point, not a hard ceiling: the pipelined e2e loop
         # overlaps decode with the copy and the device step
         bound = round(min(decode_rate, ceiling), 1)
@@ -407,16 +424,16 @@ def main(device="cuda") -> dict:
         for scale_ckpt in SCALE_CKPTS:
             try:
                 s_cfg, s_step, s_params, s_text = build_step(
-                    scale_ckpt, precision, device, rng)
+                    scale_ckpt, precision, device, rng, mesh)
                 s_batches = make_dev_batches(s_step, batch, rng)
                 for i in range(2):
-                    s_step.score(s_params, s_batches[i % 4], s_text).cpu()
+                    to_host(s_step.score(s_params, s_batches[i % 4], s_text))
                 w, c, _, _, _ = guarded(
                     lambda: device_windows(s_step, s_params, s_text,
                                            s_batches, batch, SCALE_WINDOWS,
                                            SCALE_ITERS),
                     key=max, retries=RETRIES, quiet_wait_s=QUIET_WAIT_S)
-                rate = max(w)
+                rate = max(w) / n_dev
                 scales.append({
                     "ckpt": scale_ckpt,
                     "img_per_sec": round(rate, 1),
@@ -430,9 +447,9 @@ def main(device="cuda") -> dict:
 
     row = {
         "metric": "images_per_sec_per_chip",
-        "value": round(device_rate, 1),
+        "value": round(per_chip, 1),
         "unit": "img/s",
-        "vs_baseline": round(device_rate / A100_REFERENCE_IMG_PER_SEC, 3),
+        "vs_baseline": round(per_chip / A100_REFERENCE_IMG_PER_SEC, 3),
         "vs_baseline_basis": "estimate",
         "baseline_img_per_sec": A100_REFERENCE_IMG_PER_SEC,
         "baseline_note": "A100 HF-CLIP B/16 batch-512 PyTorch estimate "
@@ -445,15 +462,16 @@ def main(device="cuda") -> dict:
         "e2e_bound_img_per_sec": bound,
         "e2e_decoder": decoder,
         "scales": scales,
-        "window_img_per_sec": [round(w, 1) for w in windows],
+        "window_img_per_sec": [round(w / n_dev, 1) for w in windows],
         "window_spread_pct": round(spread, 1),
         "contending_procs": contention,
         "contention_retries": retries,
         "contention_wait_s": quiet_wait,
         "contenders": contenders,
         "infra_excluded": list(INFRA_CMDLINE_MARKERS),
-        "device": (torch.cuda.get_device_name(device)
+        "device": (torch.cuda.get_device_name(mesh.device)
                    if device.type == "cuda" else "cpu"),
+        "n_devices": n_dev,
         "ckpt": ckpt,
         "batch": batch,
         "attn_impl": precision.attn_impl,

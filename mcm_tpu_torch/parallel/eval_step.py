@@ -11,6 +11,14 @@ memory, asynchronously) and one fp32 score per image out.
 mesh's device); under data parallelism each process runs these per-batch
 programs on its stripe of every batch (:mod:`.multihost`), ODIN included,
 as JAX's ``shard_map`` runs it per shard.
+
+On a single-process mesh of several devices (:func:`~.mesh.make_local_mesh`,
+serving and the bench) :class:`EvalStep` holds one replica of the model on
+each device (:class:`Replicated`), splits every batch into contiguous
+equal stripes (:class:`Striped`, JAX's batch-sharding order), launches the
+program of every stripe on its device before any result is read, and
+:func:`to_host` joins the stripes' results back in row order.  With one
+device nothing is split: the step passes and returns plain tensors.
 """
 
 from __future__ import annotations
@@ -67,28 +75,90 @@ def _odin_safe(precision: Precision) -> Precision:
                                attn_impl="xla", mlp_impl="xla")
 
 
+class _PerDevice(tuple):
+    """One tensor (or model) per device of a local mesh, in device order."""
+
+
+class Replicated(_PerDevice):
+    """The same value on every device: the model, text features, the
+    Mahalanobis templates."""
+
+
+class Striped(_PerDevice):
+    """A batch split into contiguous equal stripes of rows, stripe ``i`` on
+    device ``i``: the stripes in order are the batch."""
+
+
+def to_host(x) -> np.ndarray:
+    """A step's result → host numpy, the barrier of a device result: the
+    stripes of a :class:`Striped` result joined in row order, the first
+    copy of a :class:`Replicated` one."""
+    if isinstance(x, Striped):
+        return np.concatenate([to_host(s) for s in x])
+    if isinstance(x, Replicated):
+        return to_host(x[0])
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def _over_stripes(fn, *args, **kwargs) -> Striped:
+    """``fn`` once per device of a local mesh: a :class:`_PerDevice`
+    argument gives call ``i`` its ``i``-th entry, any other argument goes to
+    every call.  The calls only launch device work (nothing reads a result
+    back), so every stripe is queued on its device before any is read."""
+    n = len(next(a for a in args if isinstance(a, _PerDevice)))
+    return Striped(fn(*(a[i] if isinstance(a, _PerDevice) else a
+                        for a in args), **kwargs) for i in range(n))
+
+
+def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A pinned host tensor → ``device`` without blocking (the CPU keeps
+    it)."""
+    if device.type == "cuda":
+        return t.to(device, non_blocking=True)
+    return t
+
+
 class _Placement:
     """Host → device placement shared by the step classes (requires
-    ``self.device``)."""
+    ``self.mesh`` and ``self.device``)."""
 
-    def put_batch(self, images_u8: np.ndarray) -> torch.Tensor:
+    def put_batch(self, images_u8: np.ndarray):
         """uint8 [B, H, W, 3] host batch → device, through pinned memory
         with a non-blocking copy.  ``pin_memory`` copies into a fresh
         pinned buffer, so the caller may reuse ``images_u8`` at once, and
         PyTorch's caching host allocator keeps that buffer until the copy
-        completes."""
+        completes.  On a local mesh of ``n`` devices: :class:`Striped`, B/n
+        rows on each (B must divide)."""
         t = torch.from_numpy(np.ascontiguousarray(images_u8))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        devices = self.mesh.devices
+        if any(d.type == "cuda" for d in devices):
+            t = t.pin_memory()
+        if len(devices) == 1:
+            return _h2d(t, self.device)
+        n = len(devices)
+        if t.shape[0] % n:
+            raise ValueError(f"a batch of {t.shape[0]} rows does not split "
+                             f"over the {n} devices of the mesh")
+        b = t.shape[0] // n
+        return Striped(_h2d(t[i * b:(i + 1) * b], d)
+                       for i, d in enumerate(devices))
 
-    def put_replicated(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), device=self.device)
+    def put_replicated(self, x):
+        """A host array → each device of the mesh (one tensor on one)."""
+        arr = np.asarray(x)
+        if len(self.mesh.devices) == 1:
+            return torch.as_tensor(arr, device=self.device)
+        return Replicated(torch.as_tensor(arr, device=d)
+                          for d in self.mesh.devices)
 
 
 class EvalStep(_Placement):
     """Per-batch eval programs bound to this process's card (``mesh.device``;
-    without a mesh, :func:`make_mesh` on ``device``).
+    without a mesh, :func:`make_mesh` on ``device``), or to each device of
+    a local mesh (``mesh.devices``: the model, templates and text features
+    :class:`Replicated`, batches and results :class:`Striped`).
 
     ``score(params, images_u8, text_feats)``   → [B] fp32 OOD scores
     ``features(params, images_u8)``            → [B, D] image features
@@ -120,17 +190,23 @@ class EvalStep(_Placement):
 
     # -- device placement ------------------------------------------------------
 
-    def put_params(self, params) -> tclip.CLIP:
+    def put_params(self, params):
         """Host parameter tree → the model on this step's device, matrices
-        stored in the activation dtype."""
-        return from_jax_params(params, self.device,
-                               self.precision.activation_dtype)
+        stored in the activation dtype (a :class:`Replicated` copy on each
+        device of a local mesh)."""
+        dtype = self.precision.activation_dtype
+        if len(self.mesh.devices) == 1:
+            return from_jax_params(params, self.device, dtype)
+        return Replicated(from_jax_params(params, d, dtype)
+                          for d in self.mesh.devices)
 
     # -- per-batch programs ----------------------------------------------------
 
     @torch.inference_mode()
     def features(self, params: tclip.CLIP,
                  images_u8: torch.Tensor) -> torch.Tensor:
+        if isinstance(images_u8, Striped):
+            return _over_stripes(self.features, params, images_u8)
         x = normalize_on_device(images_u8, CLIP_MEAN, CLIP_STD,
                                 dtype=self.precision.activation_dtype)
         return tclip.encode_image(params, self.cfg.vision, x,
@@ -141,6 +217,9 @@ class EvalStep(_Placement):
               impl: Optional[str] = None) -> torch.Tensor:
         """[B] fp32 scores; ``impl`` picks the score path as in
         :func:`mcm_tpu_torch.ops.mcm_score.fused_mcm_scores`."""
+        if isinstance(images_u8, Striped):
+            return _over_stripes(self.score, params, images_u8, text_feats,
+                                 impl=impl)
         if self.score_name == "odin":
             return self._odin_score(params, images_u8, text_feats, impl)
         with torch.inference_mode():
@@ -175,6 +254,9 @@ class EvalStep(_Placement):
              normalize: bool = False) -> torch.Tensor:
         """[B] Mahalanobis scores of image features against the class
         means and shared precision matrix (lower = more ID)."""
+        if isinstance(features, Striped):
+            return _over_stripes(self.maha, features, classwise_mean,
+                                 precision_mat, normalize=normalize)
         return mahalanobis_score(features, classwise_mean, precision_mat,
                                  normalize=normalize)
 
@@ -186,7 +268,13 @@ class EvalStep(_Placement):
                     batch_size: int = 1024) -> torch.Tensor:
         """Encode + L2-normalize all class prompts → [C, D] fp32 on the
         device.  The tail batch is padded to the lead batch shape, as in
-        the JAX package (padding rows are dropped)."""
+        the JAX package (padding rows are dropped).  On a local mesh the
+        first replica encodes them and each device gets a copy, so every
+        replica scores against the same bits."""
+        if isinstance(params, Replicated):
+            text = self.encode_text(params[0], input_ids, attention_mask,
+                                    batch_size)
+            return Replicated(text.to(d) for d in self.mesh.devices)
         outs = []
         n = input_ids.shape[0]
         for lo in range(0, n, batch_size):

@@ -16,10 +16,14 @@ drops what a global array needs:
 JAX's ``make_global_batch``, ``put_global`` and ``read_local`` have no
 counterpart: each rank holds its own stripe, its own copy of the weights
 and its own outputs on its own card, so nothing is global on the device.
-The only collectives are on host arrays and small Python objects, which is
-why the group is gloo (two ranks may share one card; NCCL would refuse
-them).  Every function degenerates to the single-process path when no
-group is up.
+Evaluation's collectives are on host arrays and small Python objects,
+which is why the group is gloo (two ranks may share one card; NCCL would
+refuse them).  Training adds two on tensors (:func:`gather_rows`, the
+features of the global contrastive loss, and :func:`all_reduce_sum_`, the
+gradients), still over gloo and only with the ops gloo has
+(``all_gather``, ``all_reduce``): a CUDA tensor goes through an explicit
+host copy each way.  Every function degenerates to the single-process path
+when no group is up.
 
 Launch: ``python -m torch.distributed.run --standalone --nproc_per_node N
 -m mcm_tpu_torch.cli.eval_ood ... --n_devices N``; the launcher sets
@@ -32,7 +36,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -210,3 +214,48 @@ def assemble_global_outputs(outs: Sequence[np.ndarray],
             v = min(int(valids[i]), n_rows - start)
             out[start:start + v] = full[i - lo, :v]
     return out
+
+
+# -- collectives of data-parallel training ---------------------------------------
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host, contiguous (gloo's tensors)."""
+    return t.detach().to("cpu").contiguous()
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``[b, ...]`` rows → ``[world·b, ...]`` in rank order, on
+    ``x``'s device (``x`` itself on one process).
+
+    This rank's rows are ``x`` itself and the other ranks' are constants, so
+    the backward of the result gives ``x`` exactly its own rows of the
+    incoming gradient.  Every rank then back-propagates a loss over the
+    whole batch through its own rows only, and the gradients summed over
+    the ranks (:func:`all_reduce_sum_`) count each row once.  Built from
+    gloo's ``all_gather`` of host copies (``torch.distributed.nn``'s
+    gathering autograd op needs ``reduce_scatter``, which gloo lacks)."""
+    world = process_count()
+    if world == 1:
+        return x
+    mine = _to_host(x)
+    parts = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(parts, mine)
+    rows = [p.to(x.device, non_blocking=True) for p in parts]
+    rows[process_index()] = x
+    return torch.cat(rows)
+
+
+def all_reduce_sum_(tensors: List[torch.Tensor]) -> None:
+    """Sum each tensor over the ranks, in place: one flattened fp32 host
+    buffer, one gloo ``all_reduce``, copied back.  Every rank ends with the
+    same bits (the reduction gives all ranks one result)."""
+    if process_count() == 1 or not tensors:
+        return
+    flat = torch.cat([_to_host(t).reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    offset = 0
+    with torch.no_grad():
+        for t in tensors:
+            n = t.numel()
+            t.copy_(flat[offset:offset + n].view(t.shape))
+            offset += n

@@ -58,6 +58,7 @@ from mcm_tpu_torch.models.convert import (file_identity, load_params,
                                           resolve_clip_weight_source)
 from mcm_tpu_torch.models.init import init_clip
 from mcm_tpu_torch.parallel import EvalStep, VitLinearStep, multihost
+from mcm_tpu_torch.parallel.eval_step import Replicated, to_host
 from mcm_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
 from mcm_tpu_torch.runtime import native
 from mcm_tpu_torch.scores.clip_scores import (_scores_from_logits_host,
@@ -233,20 +234,23 @@ def _build_vit_linear(cfg: RunConfig, mesh: Mesh, log=None,
     return (params if defer_put else step.put_params(params)), None, step
 
 
-def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False):
+def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False,
+                         mesh: Optional[Mesh] = None):
     """Resolve weights + tokenizer and build the eval step (``EvalStep``
     for CLIP, ``VitLinearStep`` for ``--model vit-Linear``, which has no
-    tokenizer) on this process's mesh; returns the model on the step's
-    device, the tokenizer and the step.  A mesh that cannot be made (an
-    ``--n_devices`` other than the world size) or a batch its processes
-    cannot split raises before any weight loads.
+    tokenizer) on this process's mesh (``mesh``: a mesh the caller made,
+    e.g. serving's :func:`~mcm_tpu_torch.parallel.mesh.make_local_mesh`);
+    returns the model on the step's device, the tokenizer and the step.  A
+    mesh that cannot be made (an ``--n_devices`` other than the world size)
+    or a batch its processes cannot split raises before any weight loads.
 
     ``defer_put=True`` returns the HOST parameter tree instead (no device
     upload): :func:`run_eval` uploads it with ``step.put_params`` on first
     device use, so a fully cached ``--resume`` never touches the card."""
     check_ported(cfg)
-    mesh = make_mesh(cfg.n_devices, cfg.model_parallel, device=cfg.device)
-    _validate_batch_divisibility(cfg, mesh)
+    if mesh is None:
+        mesh = make_mesh(cfg.n_devices, cfg.model_parallel, device=cfg.device)
+        _validate_batch_divisibility(cfg, mesh)
     if cfg.model == "vit-Linear":
         return _build_vit_linear(cfg, mesh, log, defer_put)
     clip_cfg = CLIP_CONFIGS[cfg.clip_ckpt]()
@@ -320,7 +324,13 @@ def _encode_prompts(step: EvalStep, params, tokenizer, class_names,
     text = step.encode_text(params, ids, mask)          # [T*C, D] normalized
     if ensemble and len(templates) > 1:
         n_t, n_c = len(templates), len(class_names)
-        text = l2_normalize(text.reshape(n_t, n_c, -1).mean(dim=0))
+
+        def mean_of_templates(t):
+            return l2_normalize(t.reshape(n_t, n_c, -1).mean(dim=0))
+
+        if isinstance(text, Replicated):   # each copy alike on its device
+            return Replicated(mean_of_templates(t) for t in text)
+        text = mean_of_templates(text)
     return text
 
 
@@ -346,7 +356,7 @@ class _StreamReadback:
     def _drain(self, limit: int) -> None:
         while len(self._pending) > limit:
             with self._tel.stage("readback"):
-                self.out.append(self._pending.pop(0).cpu().numpy())
+                self.out.append(to_host(self._pending.pop(0)))
 
 
 def _make_pipe(dataset, cfg: RunConfig,

@@ -16,7 +16,12 @@ threshold, scoring request-sized batches.  The JAX package's
   same "lower score = more in-distribution" convention,
   ``detection_util.py:247-249``);
 * :class:`MicroBatcher` coalesces concurrent single-image requests into
-  one padded batch on a dispatcher thread.
+  one padded batch on a dispatcher thread;
+* ``n_devices`` > 1 serves on a single-process mesh of local devices (JAX's
+  ``n_devices``): a model replica on each device, every padded batch split
+  into one stripe per device, all stripes launched before any is read, and
+  the scores joined back in row order
+  (:func:`~mcm_tpu_torch.parallel.eval_step.to_host`).
 
 Requests the detector refuses (images of the wrong shape, a score family
 ``classify_images`` cannot reproduce) raise :class:`RequestRefused`, the
@@ -33,9 +38,10 @@ from concurrent.futures import Future, InvalidStateError
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from mcm_tpu_torch.config import resolve_device
+from mcm_tpu_torch.parallel.eval_step import to_host as _to_host
+from mcm_tpu_torch.parallel.mesh import make_local_mesh
 from mcm_tpu_torch.runner import (RunConfig, _StreamReadback, _encode_prompts,
                                   build_model_and_step)
 
@@ -48,22 +54,6 @@ class RequestRefused(ValueError):
     fault."""
 
 
-def _to_host(x) -> np.ndarray:
-    """A device result → host numpy (the barrier of a CUDA result)."""
-    if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
-    return np.asarray(x)
-
-
-def _resolve_n_devices(n_devices: Optional[int], device: str) -> int:
-    """``n_devices`` 0 or None means every visible device."""
-    if n_devices:
-        return int(n_devices)
-    if torch.device(device).type == "cuda":
-        return torch.cuda.device_count()
-    return 1
-
-
 class OODDetector:
     """Long-lived zero-shot OOD detector bound to one CLIP checkpoint.
 
@@ -73,10 +63,14 @@ class OODDetector:
     >>> det.calibrate(id_scores, tpr=0.95)
     >>> det.is_id(scores)                             # [N] bool
 
-    One device (``device``, default ``cuda``, which raises without a card):
-    ``n_devices`` other than 1 (0 = all visible) and ``model_parallel > 1``
-    raise ``NotImplementedError`` naming ``ROADMAP.md`` Queue 1, items
-    9a-serve and 9b.
+    ``device`` (default ``cuda``, which raises without a card) and
+    ``n_devices`` (0 or None: every visible device) make the mesh
+    (:func:`~mcm_tpu_torch.parallel.mesh.make_local_mesh`): ``cuda`` is cards
+    ``0 … n-1``, ``cuda:K`` puts every replica on card K, ``cpu`` on the
+    CPU.  Every bucket must divide by ``n_devices``.  ``model_parallel > 1``
+    raises ``NotImplementedError`` naming ``ROADMAP.md`` Queue 1, item 9b,
+    and so does a detector built inside a process group of several ranks
+    (``ValueError``): serving is one process.
     """
 
     def __init__(self, class_names: Sequence[str], clip_ckpt: str = "ViT-B/16",
@@ -95,22 +89,14 @@ class OODDetector:
                 "evaluator's --template_dir>) — scoring then uses the "
                 "Mahalanobis path")
         resolve_device(device)   # no card and no device="cpu": fail first
+        mesh = make_local_mesh(n_devices, model_parallel, device=device)
         cfg = RunConfig(clip_ckpt=clip_ckpt, score=score, T=T,
                         precision=precision, ckpt_dir=ckpt_dir,
                         template_ensemble=template_ensemble,
                         allow_random_weights=allow_random_weights,
                         noise_magnitude=noise_magnitude,
-                        image_size=image_size,
-                        n_devices=_resolve_n_devices(n_devices, device),
+                        image_size=image_size, n_devices=mesh.data,
                         model_parallel=model_parallel, device=device)
-        if model_parallel != 1:
-            raise NotImplementedError(
-                f"model_parallel={model_parallel}: tensor parallelism is "
-                f"ROADMAP.md Queue 1, item 9b")
-        if cfg.n_devices != 1:
-            raise NotImplementedError(
-                f"n_devices={cfg.n_devices}: the port serves on one device; "
-                f"multi-device serving is ROADMAP.md Queue 1, item 9a-serve")
         self.cfg = cfg
         self.image_size = image_size
         self.batch_sizes = tuple(sorted(batch_sizes))
@@ -121,7 +107,13 @@ class OODDetector:
             # dispatcher — fail at construction instead
             raise ValueError(f"batch_sizes must be positive, got "
                              f"{self.batch_sizes}")
-        self.params, tokenizer, self.step = build_model_and_step(cfg)
+        bad = [b for b in self.batch_sizes if b % mesh.data]
+        if bad:
+            # each bucket is split into one equal stripe per device
+            raise ValueError(f"batch_sizes {bad} not divisible by the "
+                             f"data-parallel mesh size {mesh.data}")
+        self.params, tokenizer, self.step = build_model_and_step(cfg,
+                                                                 mesh=mesh)
         self.class_names = list(class_names)
         self.text_feats = _encode_prompts(self.step, self.params, tokenizer,
                                           self.class_names,

@@ -16,7 +16,11 @@ the network shape of the same capability, the JAX package's
 * per-request scores come back through the batcher's futures, so a burst
   of N single-image clients costs ~1 device batch, not N;
 * ``/metrics`` exposes Prometheus-style counters (requests, images,
-  batches, coalescing ratio, latency quantiles).
+  batches, coalescing ratio, latency quantiles), the detector's replicas
+  per device and each card's peak allocated memory;
+* ``--n-devices N`` serves on N devices in this one process (a replica on
+  each, every bucket split over them); ``--device cuda:K`` puts them all on
+  card K.
 
 Endpoints
 ---------
@@ -66,6 +70,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from mcm_tpu_torch.runtime import native
 from mcm_tpu_torch.serve import (BatcherClosed, MicroBatcher, OODDetector,
@@ -205,6 +210,17 @@ class ServeMetrics:
             ]
             lat = sorted(self._latency)
         if batcher is not None:
+            devices = batcher.detector.step.mesh.devices
+            cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+            lines.append("# TYPE mcm_replicas gauge")
+            lines += [f'mcm_replicas{{device="{d}"}} {devices.count(d)}'
+                      for d in dict.fromkeys(devices)]
+            if cards:
+                lines.append("# TYPE mcm_device_max_memory_allocated_bytes "
+                             "gauge")
+                lines += [f'mcm_device_max_memory_allocated_bytes{{device='
+                          f'"{d}"}} {torch.cuda.max_memory_allocated(d)}'
+                          for d in cards]
             lines += [
                 "# TYPE mcm_device_batches_total counter",
                 f"mcm_device_batches_total {batcher.n_batches}",
@@ -783,8 +799,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         "evaluator's --template_dir, or the reference's "
                         "*_classwise_mean_*.pt)")
     p.add_argument("--n-devices", type=int, default=1,
-                   help="serving devices (0 = all visible); only 1 is "
-                        "ported (ROADMAP.md Queue 1, item 9a-serve)")
+                   help="serving devices (0 = all visible): a model "
+                        "replica on each, every batch bucket split over "
+                        "them (each bucket must divide by the count)")
     p.add_argument("--model-parallel", type=int, default=1,
                    help="tensor-parallel span; only 1 is ported")
     p.add_argument("--warmup", default="score",
@@ -795,8 +812,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         "the classify/features path; 'none' starts fast "
                         "but the first request per bucket pays the "
                         "first use)")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device to serve on (cpu only when asked for)")
+    p.add_argument("--device", default="cuda", type=str,
+                   help="cuda (cards 0 … n-1), cuda:K (every replica on "
+                        "card K) or cpu (only when asked for)")
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
@@ -856,8 +874,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     signal.signal(signal.SIGTERM, _graceful)
     signal.signal(signal.SIGINT, _graceful)
 
-    log.info("serving on %s:%d (buckets %s)", args.host, server.port,
-             detector.batch_sizes)
+    log.info("serving on %s:%d (buckets %s, devices %s)", args.host,
+             server.port, detector.batch_sizes,
+             ", ".join(str(d) for d in detector.step.mesh.devices))
     server.serve_forever()
     log.info("shutdown complete")
 

@@ -10,16 +10,22 @@ consumes (``python -m mcm_tpu_torch.cli.eval_ood --model CLIP-Linear
 and, beside it, ``<out>.train_state.npz`` for ``--resume``.  The flags of
 the JAX package's ``tools/finetune_clip.py``, plus ``--device`` (default
 ``cuda``).  Its optimizer: ``optax.adamw(lr)`` with optax's weight decay
-of 1e-4 on the ``ndim >= 2`` leaves.  ``--model_parallel`` and
-``--n_devices`` above 1, or a launch of several processes, raise: data-
-and tensor-parallel training are not ported yet (``ROADMAP.md`` Queue 1,
-items 9a-train and 9b).
+of 1e-4 on the ``ndim >= 2`` leaves.
+
+Data-parallel over N cards, one process each, ``-b`` the global batch:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m mcm_tpu_torch.tools.finetune_clip ... --n_devices N
+
+(``--device cuda:K`` puts every rank on card K).  ``--n_devices`` is the
+world size (unset: the launcher's); above 1 without the launcher it raises
+with that line.  ``--model_parallel`` above 1 raises: tensor parallelism
+is ``ROADMAP.md`` Queue 1, item 9b.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 from typing import Optional, Sequence
 
 
@@ -48,28 +54,39 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                    help="continue from <out>.train_state.npz (optimizer "
                         "moments + epoch) if present")
     p.add_argument("--device", default="cuda", type=str,
-                   help="cuda (default; raises without a card) or cpu")
+                   help="cuda (default: cuda:LOCAL_RANK under the launcher; "
+                        "raises without a card), cuda:K or cpu")
     args = p.parse_args(argv)
-    if (args.n_devices or 1) > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "training over several processes is not ported yet: ROADMAP.md "
-            "Queue 1, item 9a-train")
 
+    from mcm_tpu_torch.parallel import multihost
+    with multihost.launched(args.device):
+        return _finetune(args)
+
+
+def _finetune(args) -> str:
     from mcm_tpu_torch.config import CLIP_CONFIGS, Precision
     from mcm_tpu_torch.data import get_test_labels, set_train_loader
     from mcm_tpu_torch.data.labels import prompt_permutation
+    from mcm_tpu_torch.parallel import multihost
+    from mcm_tpu_torch.parallel.mesh import make_mesh
     from mcm_tpu_torch.runner import RunConfig, build_model_and_step
     from mcm_tpu_torch.train import train_clip
     from mcm_tpu_torch.train.contrastive import adamw, decay_matrices
 
     cfg = RunConfig(in_dataset=args.in_dataset, root_dir=args.root_dir,
                     clip_ckpt=args.CLIP_ckpt, seed=args.seed,
+                    batch_size=args.batch_size,
                     ckpt_dir=args.ckpt_dir, device=args.device,
                     allow_random_weights=args.allow_random_weights,
                     model_parallel=args.model_parallel,
                     n_devices=args.n_devices)
+    # a --n_devices the launch does not give raises with this tool's
+    # launch line; then the build checks the batch split, both before any
+    # weight loads
+    make_mesh(cfg.n_devices, cfg.model_parallel, device=cfg.device,
+              entry="mcm_tpu_torch.tools.finetune_clip")
     # the host tree: training builds its own fp32 master copy on the device
-    params, tokenizer, _ = build_model_and_step(cfg, defer_put=True)
+    params, tokenizer, step = build_model_and_step(cfg, defer_put=True)
 
     train_ds = set_train_loader(args.in_dataset, args.root_dir,
                                 subset=args.subset, max_count=args.max_count)
@@ -85,10 +102,11 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                # ImageNet100 class names are not in label order: map labels
                # to prompt rows as the evaluator does
                label_permutation=prompt_permutation(args.in_dataset),
-               precision=Precision.fast(), device=args.device,
+               precision=Precision.fast(), mesh=step.mesh,
                params=params, num_workers=args.num_workers, ckpt_path=out,
                resume=args.resume)
-    print(f"wrote {out}")
+    if multihost.process_index() == 0:
+        print(f"wrote {out}")
     return out
 
 

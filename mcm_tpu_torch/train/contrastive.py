@@ -5,7 +5,12 @@
 * symmetric InfoNCE over ``logit_scale · img@txtᵀ``, with soft targets
   over duplicate captions (:func:`clip_contrastive_loss`);
 * one train step: normalize → both towers → loss → backward → AdamW step
-  → the temperature clamp, on one device;
+  → the temperature clamp, on one device, or data-parallel over the ranks
+  of a process group (one per card): each rank encodes its stripe of the
+  global batch, the features and captions are gathered
+  (:func:`~mcm_tpu_torch.parallel.multihost.gather_rows`) into JAX's
+  global B×B loss, and one all-reduce sums the gradients before the
+  identical AdamW step on every rank;
 * gradient checkpointing over each whole tower (``jax.checkpoint`` wraps
   ``encode_image`` and ``encode_text`` in JAX; here
   ``torch.utils.checkpoint``), trading a second forward for memory.
@@ -20,6 +25,7 @@ optax transformation to JAX's step.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,6 +37,8 @@ from mcm_tpu_torch.config import (CLIPConfig, Precision, apply_matmul_policy,
 from mcm_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD, normalize_on_device
 from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models.convert import from_jax_params
+from mcm_tpu_torch.parallel import multihost
+from mcm_tpu_torch.parallel.mesh import Mesh
 from mcm_tpu_torch.scores.clip_scores import l2_normalize
 
 #: CLIP's temperature cap: logit_scale is clamped so exp(·) ≤ 100 after
@@ -135,25 +143,40 @@ def _as_device(x, device: torch.device) -> torch.Tensor:
 def make_train_step(cfg: CLIPConfig,
                     optimizer: Optional[OptimizerFactory] = None,
                     precision: Precision = Precision.fast(),
-                    device="cuda", remat: bool = True
+                    device="cuda", remat: bool = True,
+                    mesh: Optional[Mesh] = None
                     ) -> Tuple[Callable, Callable]:
-    """Build ``(init_state, train_step)`` on one device.
+    """Build ``(init_state, train_step)`` on one device, or on this rank's
+    card of ``mesh`` (:func:`~mcm_tpu_torch.parallel.mesh.make_mesh`; its
+    device replaces ``device``).
 
     ``init_state(params)`` takes the numpy tree (``init_clip``,
     ``load_params``); ``train_step(state, images_u8 [B,H,W,3], input_ids
     [B,S], mask [B,S]) → (state, loss)``, host arrays or tensors in, the
     loss a 0-d fp32 tensor on the device (read it when the host needs it).
+    On a mesh of ``n`` ranks the arrays are this rank's stripe of a global
+    batch of ``n·B`` and the loss is the global batch's, the same on every
+    rank; ``train_step.comm_s`` accumulates the seconds of the collectives
+    (with their host copies, timed from a synchronized device).
 
     Attention as in JAX: ``precision.attn_impl == "pallas_bsd_vjp"`` keeps
     the trainable bsd route (the kernel's forward, the math path's
-    gradient); anything else trains on the math path (``"xla"``).  The
-    MLP is always the unfused math path."""
+    gradient) and, as JAX's, is refused on a mesh of more than one device;
+    anything else trains on the math path (``"xla"``).  The MLP is always
+    the unfused math path."""
     if optimizer is None:
         # CLIP recipe: weight decay on the ndim >= 2 leaves (decay_matrices)
         optimizer = adamw(1e-5, weight_decay=0.2, mask=decay_matrices)
-    device = resolve_device(device)
-    attn = ("pallas_bsd_vjp" if precision.attn_impl == "pallas_bsd_vjp"
-            else "xla")
+    device = resolve_device(device) if mesh is None else mesh.device
+    world = 1 if mesh is None else mesh.data
+    if precision.attn_impl == "pallas_bsd_vjp":
+        if world != 1:
+            raise ValueError("attn_impl=pallas_bsd_vjp cannot be "
+                             "pjit-partitioned — use a single-device mesh "
+                             "or attn_impl='xla'")
+        attn = "pallas_bsd_vjp"
+    else:
+        attn = "xla"
     precision = dataclasses.replace(precision, attn_impl=attn, mlp_impl="xla")
     apply_matmul_policy(precision)
 
@@ -169,6 +192,15 @@ def make_train_step(cfg: CLIPConfig,
                 fn, params, *args, use_reentrant=False)
         return fn(params, *args)
 
+    def collective(fn, *args):
+        """``fn(*args)``, its seconds added to ``train_step.comm_s``."""
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out = fn(*args)
+        train_step.comm_s += time.perf_counter() - t
+        return out
+
     def train_step(state: TrainState, images_u8, input_ids, mask):
         params, opt = state.params, state.opt_state
         images = _as_device(images_u8, device)
@@ -179,10 +211,16 @@ def make_train_step(cfg: CLIPConfig,
                                 dtype=precision.activation_dtype)
         img = tower(encode_image, params, x)
         txt = tower(encode_text, params, ids, mask)
+        if world > 1:
+            # JAX's global B×B loss: every rank's rows, this rank's live
+            img, txt, ids, mask = (collective(multihost.gather_rows, t)
+                                   for t in (img, txt, ids, mask))
         loss = clip_contrastive_loss(
             img, txt, params["logit_scale"],
             positive_mask=_duplicate_caption_mask(ids, mask))
         loss.backward()
+        if world > 1:
+            _sum_gradients(params, collective)
         opt.step()
         with torch.no_grad():
             # the CLIP temperature clamp (see MAX_LOGIT_SCALE)
@@ -195,7 +233,20 @@ def make_train_step(cfg: CLIPConfig,
         init_optimizer_state(opt)
         return TrainState(model, opt, 0)
 
+    train_step.comm_s = 0.0
     return init_state, train_step
+
+
+def _sum_gradients(params: tclip.CLIP, collective) -> None:
+    """Each rank's gradient reaches its own rows only (``gather_rows``), so
+    the sum over the ranks is the global loss's gradient: one all-reduce of
+    every gradient.  ``logit_scale`` is the exception: it enters the loss
+    directly, and every rank computed the same global loss, so each holds
+    its whole gradient already; only rank 0's copy joins the sum."""
+    if multihost.process_index() != 0:
+        params["logit_scale"].grad.zero_()
+    grads = [p.grad for p in params.parameters() if p.grad is not None]
+    collective(multihost.all_reduce_sum_, grads)
 
 
 def init_optimizer_state(opt: torch.optim.Optimizer) -> None:

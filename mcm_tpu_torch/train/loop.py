@@ -7,6 +7,13 @@ prompts built from class names ("a photo of a {c}", the text the
 zero-shot evaluator scores with), and per-epoch ``.npz`` checkpoints that
 ``--model CLIP-Linear`` loads, beside a full train-state sibling for
 ``resume``.
+
+Under ``python -m torch.distributed.run`` (one rank per card, the mesh of
+:func:`~mcm_tpu_torch.parallel.mesh.make_mesh`) every rank draws the same
+permutation, decodes its stripe of each global batch and takes the
+data-parallel step; the parameters stay equal on every rank, so rank 0
+alone logs and writes both files (where JAX writes orbax for params that
+span processes), and it alone decides whether ``resume`` finds a state.
 """
 
 from __future__ import annotations
@@ -17,12 +24,13 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from mcm_tpu_torch.config import CLIPConfig, Precision
 from mcm_tpu_torch.data.pipeline import DataPipeline
 from mcm_tpu_torch.models.convert import save_params, to_jax_params
 from mcm_tpu_torch.models.init import init_clip
+from mcm_tpu_torch.parallel import multihost
+from mcm_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mcm_tpu_torch.train.checkpoint import load_train_state, save_train_state
 from mcm_tpu_torch.train.contrastive import (OptimizerFactory, TrainState,
                                              make_train_step)
@@ -50,7 +58,8 @@ def train_clip(cfg: CLIPConfig, dataset, class_names: Sequence[str],
                image_size: Optional[int] = None,
                ckpt_path: Optional[str] = None, resume: bool = False,
                label_permutation: Optional[np.ndarray] = None,
-               log: Callable[[str], None] = print) -> TrainState:
+               log: Callable[[str], None] = print,
+               mesh: Optional[Mesh] = None) -> TrainState:
     """Fine-tune CLIP contrastively on an ImageFolder-style dataset.
 
     ``params`` is the numpy tree to start from (default: ``init_clip(seed,
@@ -65,10 +74,17 @@ def train_clip(cfg: CLIPConfig, dataset, class_names: Sequence[str],
     ``resume=True`` restores that sibling when present and continues from
     the next epoch; the shuffle stream of completed epochs is replayed, so
     a resumed run walks the batches of an uninterrupted one.
+
+    ``mesh`` (default: :func:`make_mesh` on ``device``, the world size of
+    the process group) sets the ranks: ``batch_size`` is the global batch,
+    and must divide by them.  Only rank 0 calls ``log``.
     """
+    if mesh is None:
+        mesh = make_mesh(None, device=device)
     init_state, train_step = make_train_step(cfg, optimizer=optimizer,
-                                             precision=precision,
-                                             device=device)
+                                             precision=precision, mesh=mesh)
+    if multihost.process_index() != 0:
+        log = _silent
     if params is None:
         params = init_clip(seed, cfg)
     state = init_state(params)
@@ -91,7 +107,9 @@ def train_clip(cfg: CLIPConfig, dataset, class_names: Sequence[str],
 
     state_path = f"{ckpt_path}.train_state.npz" if ckpt_path else None
     start_epoch = 0
-    if resume and state_path and os.path.exists(state_path):
+    # rank 0 decides, so every rank restores (or none does)
+    if multihost.broadcast_object(bool(resume and state_path
+                                       and os.path.exists(state_path))):
         state, start_epoch = load_train_state(state_path, state)
         log(f"resumed from {state_path}: {start_epoch} epoch(s) done, "
             f"step {state.step}")
@@ -113,25 +131,31 @@ def train_clip(cfg: CLIPConfig, dataset, class_names: Sequence[str],
                                      mask_all[batch.labels])
             losses.append(loss)
         mean_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
+        comm = (f"; collectives {train_step.comm_s:.1f}s"
+                if mesh.data > 1 else "")
+        train_step.comm_s = 0.0
         log(f"epoch {epoch + 1}/{epochs}: loss {mean_loss:.4f}  "
-            f"({len(losses)} steps, {time.perf_counter() - t0:.1f}s)")
+            f"({len(losses)} steps, {time.perf_counter() - t0:.1f}s{comm})")
         if not np.isfinite(mean_loss):
             raise FloatingPointError(f"non-finite loss at epoch {epoch + 1}")
         if ckpt_path:
-            _save_checkpoint(state.params, ckpt_path, log)
-            save_train_state(state, state_path, epoch=epoch + 1)
+            _save_checkpoint(state, ckpt_path, state_path, epoch + 1, log)
     return state
 
 
-def _save_checkpoint(params, ckpt_path: str, log) -> None:
+def _silent(_msg: str) -> None:
+    """The log of the ranks other than 0."""
+
+
+def _save_checkpoint(state: TrainState, ckpt_path: str, state_path: str,
+                     epoch: int, log) -> None:
     """The params tree as ``.npz`` (the file ``--model CLIP-Linear`` and
-    the JAX package's ``load_params`` read).  JAX writes an orbax
-    checkpoint instead when its params span processes; the port's training
-    runs in one process, and several raise."""
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "checkpointing params that span processes (JAX's orbax branch) "
-            "is not ported yet: ROADMAP.md Queue 1, item 9a-train")
-    save_params(to_jax_params(params), ckpt_path)
-    log(f"checkpoint -> {ckpt_path}")
+    the JAX package's ``load_params`` read) and the full-state sibling,
+    after ``epoch`` completed epochs.  Under a process group the params are
+    the same on every rank, so rank 0 writes both files (JAX writes orbax
+    when its params span processes) and the others wait for it."""
+    if multihost.process_index() == 0:
+        save_params(to_jax_params(state.params), ckpt_path)
+        save_train_state(state, state_path, epoch=epoch)
+        log(f"checkpoint -> {ckpt_path}")
+    multihost.barrier()

@@ -242,3 +242,43 @@ def test_cuda_without_a_card_raises(monkeypatch):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         bench.main()
+
+
+@pytest.mark.filterwarnings("ignore:MCM_TPU_TEST_TINY_B16")
+def test_cpu_run_on_two_replicas_reports_rates_per_device(tiny_bench):
+    """``n_devices=2`` on the CPU: the mesh holds two replicas, every timed
+    batch is split into two stripes, and every rate of the row is divided
+    by the count (JAX's bench divides by ``len(jax.devices())``).  The
+    guard returns what the segments measured, the three e2e segments
+    standing in at 60 img/s over both devices."""
+    from mcm_tpu_torch.parallel import EvalStep
+    from mcm_tpu_torch.parallel.eval_step import Striped
+
+    def guarded(measure, key=None, retries=0, quiet_wait_s=0.0):
+        val = measure()
+        return (val if isinstance(val, list) else 60.0), 0, 0, 0.0, []
+
+    kinds = []
+    put = EvalStep.put_batch
+    tiny_bench.setattr(bench, "guarded", guarded)
+    tiny_bench.setattr(EvalStep, "put_batch",
+                       lambda self, x: kinds.append(type(put(self, x)))
+                       or put(self, x))
+    row = bench.main(device="cpu", n_devices=2)
+    assert row["n_devices"] == 2
+    assert row["metric"] == "images_per_sec_per_chip"
+    assert row["value"] == max(row["window_img_per_sec"]) > 0
+    for key in ("e2e_img_per_sec", "e2e_decode_img_per_sec",
+                "e2e_transfer_ceiling_img_per_sec", "e2e_bound_img_per_sec"):
+        assert row[key] == 30.0
+    assert kinds and set(kinds) == {Striped}
+    with pytest.raises(ValueError, match="does not split over 3 devices"):
+        bench.main(device="cpu", n_devices=3)
+
+
+def test_a_launch_of_several_processes_raises(monkeypatch):
+    """The bench is one process over its local cards; under the launcher
+    it names the single-process command."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="python -m mcm_tpu_torch.bench"):
+        bench.main(device="cpu")

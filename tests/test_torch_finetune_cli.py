@@ -91,12 +91,19 @@ def test_finetune_resume_continues(finetuned, root, tmp_path, monkeypatch):
         assert int(z["__epoch"]) == 2 and int(z["__step"]) == 4
 
 
-@pytest.mark.parametrize("flags", [["--model_parallel", "2"],
-                                   ["--n_devices", "2"]])
-def test_finetune_refuses_several_devices(tmp_path, monkeypatch, root, flags):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--model_parallel", "2"], NotImplementedError, "Queue 1, item 9b"),
+    (["--n_devices", "2"], ValueError,
+     r"no process group is up; launch them with: python -m "
+     r"torch.distributed.run --standalone --nproc_per_node 2 -m "
+     r"mcm_tpu_torch.tools.finetune_clip \.\.\. --n_devices 2")])
+def test_finetune_refuses_several_devices(tmp_path, monkeypatch, root, flags,
+                                          error, match):
+    """Tensor parallelism is not ported; data parallelism needs the
+    launcher, whose line the error names."""
     from mcm_tpu_torch.tools import finetune_clip
     _in_tmp(monkeypatch, tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    with pytest.raises(error, match=match):
         finetune_clip.main(["--root-dir", str(root), "--device", "cpu",
                             "--allow_random_weights"] + flags)
 

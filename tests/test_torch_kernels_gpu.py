@@ -30,7 +30,9 @@ bf16's rounding (2^-8 relative, plus 1e-4 of the largest value for fp32
 summation order) of an IEEE fp32 reference.  Data parallelism: one batch
 through a gloo group of one process is bit-equal to the one-process step;
 ODIN's gradient pass in sub-batches is held to 2e-5 of the largest score
-against one pass.  Not a kernel, but checked on
+against one pass; the serving detector on two replicas of one card
+launches the kernels on each and scores as one replica does.  Not a
+kernel, but checked on
 the card's host: the native JPEG decoder builds, loads and passes its
 self-test there.
 """
@@ -915,6 +917,35 @@ def test_detector_through_the_kernels_matches_the_cpu_plain_path(
         served = np.array([f.result(timeout=120)
                            for f in [mb.submit(im) for im in images]])
     np.testing.assert_allclose(served, want, rtol=5e-3, atol=5e-4)
+
+
+def test_detector_on_two_replicas_of_one_card(cuda, monkeypatch):
+    """``OODDetector(n_devices=2, device="cuda:0")``: each replica launches
+    the bsd and MCM kernels on its stripe of every bucket, and the scores
+    and classes are the one-replica detector's (within the bucket
+    tolerance: a stripe is a batch of another size)."""
+    import warnings
+
+    from mcm_tpu_torch.serve import OODDetector
+    monkeypatch.setenv("MCM_TPU_TEST_TINY_B16", "1")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dets = {n: OODDetector(class_names=["cat", "dog", "owl", "eel"],
+                               allow_random_weights=True, batch_sizes=(2, 4),
+                               n_devices=n, device="cuda:0")
+                for n in (1, 2)}
+    assert dets[2].step.mesh.devices == (torch.device("cuda", 0),) * 2
+    rng = np.random.default_rng(10)
+    images = rng.integers(0, 256, size=(6, 224, 224, 3), dtype=np.uint8)
+    layers = 2                                       # the double's depth
+    bsd, mcm = attention.bsd_attention.launches, mcm_score.mcm_score.launches
+    got = dets[2].score_images(images)               # buckets 4, then 2
+    assert attention.bsd_attention.launches == bsd + 2 * 2 * layers
+    assert mcm_score.mcm_score.launches == mcm + 2 * 2
+    want = dets[1].score_images(images)
+    np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-4)
+    np.testing.assert_array_equal(dets[2].classify_images(images)[0],
+                                  dets[1].classify_images(images)[0])
 
 
 # -- training: the trainable attention and matmul_f32's gradient -------------

@@ -289,20 +289,25 @@ def test_detector_rejects_bad_configurations():
     with pytest.raises(ValueError, match="positive"):
         serve.OODDetector(class_names=["a"], allow_random_weights=True,
                           batch_sizes=(0, 4), device="cpu")
-    for kw in ({"n_devices": 2}, {"model_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-            serve.OODDetector(class_names=["a"], allow_random_weights=True,
-                              device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 9b"):
+        serve.OODDetector(class_names=["a"], allow_random_weights=True,
+                          device="cpu", model_parallel=2)
+    # two devices serve (buckets that split over them)
+    two = _build(serve, device="cpu", n_devices=2, batch_sizes=(2, 4))
+    assert two.step.mesh.devices == (torch.device("cpu"),) * 2
+    assert two.cfg.n_devices == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.OODDetector(class_names=["a"], allow_random_weights=True)
 
 
 def test_all_visible_devices_is_one_on_the_cpu():
-    from mcm_tpu_torch import serve
-    assert serve._resolve_n_devices(0, "cpu") == 1
-    assert serve._resolve_n_devices(None, "cpu") == 1
-    assert serve._resolve_n_devices(3, "cpu") == 3
+    """The detector's mesh: 0 or None is every visible device, one replica
+    on the CPU; a count is honoured."""
+    from mcm_tpu_torch.parallel.mesh import make_local_mesh
+    assert make_local_mesh(0, device="cpu").data == 1
+    assert make_local_mesh(None, device="cpu").data == 1
+    assert make_local_mesh(3, device="cpu").devices == (torch.device("cpu"),) * 3
 
 
 # -- MicroBatcher ------------------------------------------------------------------

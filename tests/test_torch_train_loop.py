@@ -203,16 +203,27 @@ def test_non_finite_loss_raises(tree):
 
 
 def test_multiprocess_checkpoint_raises(monkeypatch, tmp_path):
-    """JAX's orbax branch (params spanning processes) is not ported."""
-    import torch.distributed as dist
-
+    """Under a process group of two ranks (where JAX writes orbax for params
+    that span processes) rank 0 alone writes the ``.npz`` and its
+    train-state sibling, and every rank then meets the others at a
+    barrier; nothing raises."""
+    from mcm_tpu_torch.parallel import multihost
     from mcm_tpu_torch.train.loop import _save_checkpoint
-    from mcm_tpu_torch.models.convert import from_jax_params
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    params = from_jax_params(init_clip(0, _tiny_cfg()), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        _save_checkpoint(params, str(tmp_path / "x.npz"), print)
+    state = _state()
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    barriers = []
+    monkeypatch.setattr(multihost.dist, "barrier",
+                        lambda *a, **k: barriers.append(1))
+    for rank in (1, 0):
+        monkeypatch.setattr(multihost, "process_index", lambda r=rank: r)
+        logs = []
+        path = str(tmp_path / f"x{rank}.npz")
+        _save_checkpoint(state, path, f"{path}.train_state.npz", 1,
+                         logs.append)
+        assert os.path.exists(path) == os.path.exists(
+            f"{path}.train_state.npz") == (rank == 0)
+        assert logs == ([f"checkpoint -> {path}"] if rank == 0 else [])
+    assert len(barriers) == 2
 
 
 def _state(optimizer=None):
