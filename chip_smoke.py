@@ -146,6 +146,28 @@
    collective ms (gather and gradient all-reduce with their host copies)
    and peak memory; then ``--model CLIP-Linear`` on that checkpoint (12 bsd
    and 1 MCM launch a batch).
+   tp phase, after the dp train phase on its weights, trees and
+   fine-tune: tensor parallelism on two shards of card 0 (the split, the
+   fp32 sum of the partials and the join; not a rate across cards), each
+   TP run launching no kernel (JAX routes a TP mesh to the math paths):
+   (a) the eval CLI at ``--n_devices 2 --model_parallel 2 --device
+   cuda:0`` in parity against the one-device parity run (scores within
+   rtol 1e-4 / atol 1e-5, the CSV equal; the log names the grid) and in
+   fast against the slice phase's run (rtol 5e-3 / atol 5e-4), then one
+   batch of 128 at T = 1 and T = 2 in each precision: device ms, peak
+   memory, the scores held; (b) ODIN on one batch of 32, T = 2 against
+   T = 1 (2e-5 of the largest score), with each one's ms; (c)
+   ``OODDetector(n_devices=4, model_parallel=2, device="cuda:0")`` against
+   the one-device detector on 100 ID images and through its MicroBatcher
+   (the bucket tolerance); (d) ``tools.finetune_clip --n_devices 2
+   --model_parallel 2 --device cuda:0``: its epoch loss within 1e-3
+   relative of the one-device fine-tune's, the unsharded checkpoint and
+   train state of a T = 1 run, ms a step and peak memory; (e)
+   ``mcm_tpu_torch.dryrun.dryrun_multichip(4, "cuda:0")``; (f) one parity
+   train step at full ViT-B/16 width and depth on 8 images, T = 2 against
+   T = 1: the loss within rel 1e-5 and every leaf's gradient (each split
+   leaf's shards joined) within 1e-4 of its largest |g| (a leaf that is
+   all rounding, the key biases, within 1e-6 of the largest of all).
 4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
    turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
@@ -2670,6 +2692,364 @@ def dp_phase(work: str) -> dict:
     return total
 
 
+# the tp phase: two shards of the model on card 0 against one device.
+# parity (fp32): the JAX package's TP serving bound
+# (tests/serve_mesh_suite.py); fast (bf16, the math path against the
+# one-device run's kernels): ROADMAP.md Queue 3 N's bound
+TP_RTOL, TP_ATOL = 1e-4, 1e-5
+TP_FAST_RTOL, TP_FAST_ATOL = 5e-3, 5e-4
+TP_ODIN_BATCH = 32
+TP_FLAGS = ("--n_devices", "2", "--model_parallel", "2", "--device",
+            "cuda:0")
+TP_GRAD_BATCH = 8
+TP_GRAD_REL = 1e-4
+
+
+def _tp_batch(data: str, ckpt: str, tp: int, batch: int, **over) -> tuple:
+    """The converted weights, one ID batch of ``batch`` rows and the prompt
+    features, on a process-form mesh of ``tp`` shards of card 0."""
+    from mcm_tpu_torch.data import DataPipeline, get_test_labels, set_val_loader
+    from mcm_tpu_torch.runner import (RunConfig, _encode_prompts,
+                                      build_model_and_step)
+
+    cfg = RunConfig(in_dataset="ImageNet", root_dir=data,
+                    allow_random_weights=True, ckpt_dir=ckpt,
+                    device="cuda:0", batch_size=batch, n_devices=tp,
+                    model_parallel=tp, **over)
+    params, tokenizer, step = build_model_and_step(cfg)
+    val = set_val_loader("ImageNet", data)
+    text = _encode_prompts(step, params, tokenizer,
+                           get_test_labels("ImageNet", val), False)
+    images = next(iter(DataPipeline(val, batch, num_workers=8))).images
+    return params, step, text, step.put_batch(images)
+
+
+def _tp_held(got, want, rtol, atol, what) -> dict:
+    err = np.abs(got - want)
+    ok = got.shape == want.shape and bool(np.all(err <= atol + rtol *
+                                                 np.abs(want)))
+    check(ok, f"{what}: max delta {float(err.max())} beyond rtol {rtol} "
+              f"atol {atol}")
+    return {"max_abs_delta": float(err.max()),
+            "max_rel_delta": float((err / np.maximum(np.abs(want),
+                                                     1e-30)).max()),
+            "bit_equal": bool(np.array_equal(got, want)),
+            "rtol": rtol, "atol": atol}
+
+
+def _tp_batch_times(data: str, ckpt: str, precision: str, batch: int,
+                    score: str = "MCM") -> dict:
+    """One batch at T = 1 and T = 2 on card 0 under ``precision``: the
+    scores held to each other, the device ms of a batch, the peak memory
+    of the model and a batch, and the launches of the T = 2 batch (none)."""
+    import gc
+    counters = _all_counters()
+    out, scores = {}, {}
+    for tp in (1, 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params, step, text, images = _tp_batch(data, ckpt, tp, batch,
+                                               precision=precision,
+                                               score=score)
+        for fn in counters.values():
+            fn.launches = 0
+        scores[tp] = step.score(params, images, text).cpu().numpy()
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        if tp == 2:
+            _check_only(launches, {}, f"T = 2 {score} batch ({precision})")
+        out[f"tp{tp}"] = {
+            "batch_ms": cuda_ms(lambda: step.score(params, images, text),
+                                iters=3 if score == "odin" else 10,
+                                warmup=1),
+            "max_memory_allocated_bytes":
+                torch.cuda.max_memory_allocated() - base,
+            "launches": launches, "mesh": step.mesh.describe()}
+        del params, step, text, images
+    out["ratio_ms"] = out["tp2"]["batch_ms"] / out["tp1"]["batch_ms"]
+    return out, scores
+
+
+def _tp_step_grads(params, batch, tp: int) -> tuple:
+    """One parity train step on ``tp`` shards of card 0 with no update (SGD
+    at lr 0): the loss, every leaf's gradient of the unsharded tree on the
+    host, and the launches (none at T = 2)."""
+    from mcm_tpu_torch.config import CLIP_CONFIGS, Precision
+    from mcm_tpu_torch.parallel.mesh import make_mesh
+    from mcm_tpu_torch.parallel.tensor import logical_parameters
+    from mcm_tpu_torch.train import make_train_step
+
+    init_state, step = make_train_step(
+        CLIP_CONFIGS["ViT-B/16"](), precision=Precision.parity(),
+        mesh=make_mesh(tp, tp, device="cuda:0"), remat=False,
+        optimizer=lambda named: torch.optim.SGD([p for _, p in named],
+                                                lr=0.0))
+    state = init_state(params)
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    state, loss = step(state, *batch)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    grads = {}
+    for name, parts, axis in logical_parameters(state.params):
+        g = [p.grad for p in parts]
+        grads[name] = (g[0] if axis is None else torch.cat(
+            [x.to(g[0].device) for x in g], axis)).cpu().numpy()
+    return float(loss), grads, launches
+
+
+def _tp_grads() -> dict:
+    """(f): T = 2's train step against T = 1's at full ViT-B/16 width."""
+    from mcm_tpu_torch.config import CLIP_CONFIGS
+    from mcm_tpu_torch.models.init import init_clip
+
+    cfg = CLIP_CONFIGS["ViT-B/16"]()
+    params = init_clip(0, cfg)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, cfg.text.vocab_size - 1,
+                       (TP_GRAD_BATCH, cfg.text.context_length))
+    ids[:, -1] = cfg.text.vocab_size - 1          # EOT, the largest id
+    ids[3] = ids[0]                               # a duplicate caption
+    batch = (rng.integers(0, 256, (TP_GRAD_BATCH, cfg.vision.image_size,
+                                   cfg.vision.image_size, 3), np.uint8),
+             ids.astype(np.int32), np.ones(ids.shape, np.int32))
+    loss1, want, _ = _tp_step_grads(params, batch, 1)
+    loss2, got, launches = _tp_step_grads(params, batch, 2)
+    _check_only(launches, {}, "the T = 2 train step")
+    check(abs(loss2 - loss1) <= 1e-5 * abs(loss1),
+          f"T = 2 train-step loss {loss2} vs T = 1 {loss1}")
+    top = max(float(np.abs(w).max()) for w in want.values())
+    worst, rounding = 0.0, []
+    for k, w in want.items():
+        scale = float(np.abs(w).max())
+        if scale > 1e-5 * top:
+            bound = TP_GRAD_REL * scale
+        else:
+            bound = 1e-6 * top
+            rounding.append(k)
+        delta = float(np.abs(got[k] - w).max())
+        check(got[k].shape == w.shape and delta <= bound,
+              f"T = 2 gradient of {k}: max delta {delta} > {bound}")
+        worst = max(worst, delta / bound)
+    return {"loss": {"tp1": loss1, "tp2": loss2}, "leaves": len(want),
+            "largest_grad": top, "worst_delta_over_bound": worst,
+            "rounding_leaves": rounding, "rel": TP_GRAD_REL,
+            "batch": TP_GRAD_BATCH, "launches_tp2": launches}
+
+
+def tp_phase(work: str) -> dict:
+    """Tensor parallelism on one card (two shards of the model on card 0,
+    which tests the split, the fp32 sum of the partials and the join, not a
+    rate across cards), on the slice phase's converted ViT-B/16 weights and
+    trees.  (a) The eval CLI at ``--n_devices 2 --model_parallel 2
+    --device cuda:0`` in parity against the one-device parity run (scores
+    within TP_RTOL / TP_ATOL, the CSV equal) and in fast against the slice
+    phase's run (TP_FAST_RTOL / TP_FAST_ATOL), no kernel launched on the
+    TP runs (JAX's routing); the device ms of one batch of 128 and the
+    peak memory at T = 1 and T = 2.  (b) ODIN on one batch of 32 at T = 2
+    against T = 1 (ODIN_REL_TOL of the largest score).  (c)
+    ``OODDetector(n_devices=4, model_parallel=2, device="cuda:0")`` (data 2
+    × model 2) against the one-device detector on 100 ID images.  (d)
+    ``tools.finetune_clip --n_devices 2 --model_parallel 2 --device
+    cuda:0``: its epoch loss within DP_TRAIN_LOSS_REL_TOL of the one-device
+    fine-tune's, ms a step, peak memory.  (e) ``dryrun_multichip(4,
+    "cuda:0")``.  (f) One parity train step at full ViT-B/16 width, T = 2
+    against T = 1: the loss and every leaf's gradient (:func:`_tp_grads`)."""
+    import glob
+    import warnings
+
+    from mcm_tpu_torch.dryrun import dryrun_multichip
+    from mcm_tpu_torch.serve_http import decode_image_bytes
+    from mcm_tpu_torch.tools import finetune_clip
+
+    data = os.path.join(work, "datasets")
+    ckpt = os.path.join(work, "ckpt")
+    card = card_line()
+    names = ["ID_ImageNet", *OOD_SETS]
+    out = {"phase": "tp", "card": card,
+           "note": "T = 2 is two shards on card 0: the split, the sum and "
+                   "the join, not a rate across cards"}
+
+    def cli(name, *flags):
+        run = cli_run(work, _cli_argv(data, ckpt, name, "--in_dataset",
+                                      "ImageNet", "--score", "MCM", "-b",
+                                      str(BATCH), *flags))
+        log_dir = _log_dir(work, "ImageNet", "MCM", name)
+        _check_scores(log_dir, dict([("ID_ImageNet", N_ID)]
+                                    + [(o, N_OOD) for o in OOD_SETS]))
+        with open(os.path.join(log_dir, f"{name}.csv")) as f:
+            csv = f.read()
+        return run, log_dir, csv
+
+    # (a) the CLI, parity then fast
+    one, one_dir, one_csv = cli("tp1_parity", "--precision", "parity")
+    two, two_dir, two_csv = cli("tp2_parity", "--precision", "parity",
+                                *TP_FLAGS)
+    _check_only(two["launches"], {}, "the T = 2 parity CLI run")
+    check("mesh: data 1 × model 2 on cuda:0, cuda:0" in _read_log(two_dir),
+          "the T = 2 run log does not name its grid")
+    got, want = _score_files(two_dir, names), _score_files(one_dir, names)
+    out["cli_parity"] = {
+        "scores": {ds: _tp_held(got[ds], want[ds], TP_RTOL, TP_ATOL,
+                                f"T = 2 parity {ds}") for ds in names},
+        "csv_equal": two_csv == one_csv,
+        "max_memory_allocated_bytes": {
+            "tp1": one["max_memory_allocated_bytes"],
+            "tp2": two["max_memory_allocated_bytes"]},
+        "cli_wall_s": {"tp1": one["cli_wall_s"], "tp2": two["cli_wall_s"]},
+        "launches_tp1": one["launches"]}
+    check(two_csv == one_csv, "T = 2 parity: the CSV differs from T = 1's")
+    fast, fast_dir, fast_csv = cli("tp2_fast", *TP_FLAGS)
+    _check_only(fast["launches"], {}, "the T = 2 fast CLI run")
+    single = _log_dir(work, "ImageNet", "MCM", "chip_smoke")
+    got, want = _score_files(fast_dir, names), _score_files(single, names)
+    with open(os.path.join(single, "chip_smoke.csv")) as f:
+        fast_csv_equal = f.read() == fast_csv
+    out["cli_fast"] = {
+        "scores": {ds: _tp_held(got[ds], want[ds], TP_FAST_RTOL,
+                                TP_FAST_ATOL, f"T = 2 fast {ds}")
+                   for ds in names},
+        "csv_equal_to_kernel_run": fast_csv_equal,
+        "max_memory_allocated_bytes": fast["max_memory_allocated_bytes"],
+        "cli_wall_s": fast["cli_wall_s"],
+        "loop_images_per_s": _loop_rate(_read_log(fast_dir))}
+    for precision in ("parity", "fast"):
+        times, scores = _tp_batch_times(data, ckpt, precision, BATCH)
+        rtol, atol = ((TP_RTOL, TP_ATOL) if precision == "parity"
+                      else (TP_FAST_RTOL, TP_FAST_ATOL))
+        times["scores"] = _tp_held(scores[2], scores[1], rtol, atol,
+                                   f"one batch, T = 2 vs 1 ({precision})")
+        out[f"batch_{precision}"] = times
+        print(f"tp batch of {BATCH} ({precision}): T = 1 "
+              f"{times['tp1']['batch_ms']:.2f} ms, T = 2 (two shards of card "
+              f"0) {times['tp2']['batch_ms']:.2f} ms, ratio "
+              f"{times['ratio_ms']:.3f}; peak memory T = 1 "
+              f"{times['tp1']['max_memory_allocated_bytes']} B, T = 2 "
+              f"{times['tp2']['max_memory_allocated_bytes']} B ({card})",
+              flush=True)
+
+    # (b) ODIN on one batch of 32
+    times, scores = _tp_batch_times(data, ckpt, "fast", TP_ODIN_BATCH,
+                                    score="odin")
+    delta = float(np.abs(scores[2] - scores[1]).max())
+    scale = float(np.abs(scores[1]).max())
+    check(delta <= ODIN_REL_TOL * scale,
+          f"ODIN T = 2 vs T = 1: max delta {delta} > {ODIN_REL_TOL} x "
+          f"{scale}")
+    times.update(max_abs_delta=delta, tol=ODIN_REL_TOL * scale)
+    out["odin_batch"] = times
+    print(f"tp ODIN batch of {TP_ODIN_BATCH}: T = 1 "
+          f"{times['tp1']['batch_ms']:.1f} ms, T = 2 "
+          f"{times['tp2']['batch_ms']:.1f} ms; max delta {delta} (bound "
+          f"{ODIN_REL_TOL * scale}) ({card})", flush=True)
+
+    # (c) the detector on a data 2 × model 2 grid of card 0
+    paths = sorted(glob.glob(os.path.join(data, "ImageNet", "val", "*",
+                                          "*.jpg")))[:N_MESH_IMAGES]
+    images = []
+    for path in paths:
+        with open(path, "rb") as f:
+            images.append(decode_image_bytes(f.read()))
+    images = np.stack(images)
+    from mcm_tpu_torch.data.labels import get_test_labels
+    from mcm_tpu_torch.serve import MicroBatcher, OODDetector
+    counters = _all_counters()
+    dets = {}
+    for key, n, tp in (("one", 1, 1), ("dp2_tp2", 4, 2)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            dets[key] = OODDetector(
+                class_names=get_test_labels("ImageNet"), ckpt_dir=ckpt,
+                allow_random_weights=True, batch_sizes=SERVE_MESH_BUCKETS,
+                n_devices=n, model_parallel=tp, device="cuda:0")
+        dets[key].warmup()
+    det = dets["dp2_tp2"]
+    check(det.step.mesh.shape == {"data": 2, "model": 2},
+          f"the TP detector's grid is {det.step.mesh.shape}")
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    s_tp = det.score_images(images)
+    torch.cuda.synchronize()
+    tp_s = time.perf_counter() - t
+    _check_only({n: fn.launches for n, fn in counters.items()}, {},
+                "the data 2 × model 2 detector")
+    s_one = dets["one"].score_images(images)
+    with MicroBatcher(det, max_wait_ms=5) as mb:
+        futs = [mb.submit(img) for img in images[:16]]
+        coalesced = np.array([f.result(timeout=300) for f in futs],
+                             np.float32)
+    out["detector"] = {
+        "mesh": det.step.mesh.describe(),
+        "scores": _tp_held(s_tp, s_one, SERVE_RTOL, SERVE_ATOL,
+                           "the data 2 × model 2 detector"),
+        "microbatcher": _tp_held(coalesced, s_tp[:16], SERVE_RTOL,
+                                 SERVE_ATOL, "its MicroBatcher"),
+        "images": len(images), "score_images_s": tp_s}
+    del dets, det
+
+    # (d) the fine-tune on two shards of card 0
+    ft = os.path.join(work, "finetuned_tp_ImageNet10.npz")
+    steps = MAHA_TRAIN_PER_CLASS * 10 // TRAIN_BATCH
+    run, text = _quiet_run(work, [
+        "--in_dataset", "ImageNet10", "--root-dir", data, "--CLIP_ckpt",
+        "ViT-B/16", "-b", str(TRAIN_BATCH), "--epochs", "1", "--ckpt_dir",
+        ckpt, "--allow_random_weights", "--num_workers", "8", "--out", ft,
+        *TP_FLAGS], finetune_clip.main)
+    _check_only(run["launches"], {}, "the T = 2 fine-tune")
+    m = re.search(r"epoch 1/1: loss (\S+)  \((\d+) steps, ([0-9.]+)s\)", text)
+    check(m is not None and int(m.group(2)) == steps,
+          f"T = 2 fine-tune epoch line {m.group(0) if m else None}")
+    one_ft = FINETUNE_ONE_PROCESS
+    gap = abs(float(m.group(1)) - one_ft["epoch_loss"]) / abs(
+        one_ft["epoch_loss"])
+    check(gap <= DP_TRAIN_LOSS_REL_TOL,
+          f"T = 2 epoch loss {m.group(1)} vs one device "
+          f"{one_ft['epoch_loss']}: relative gap {gap}")
+    from mcm_tpu_torch.models.convert import _flatten, load_params
+    with np.load(ft + ".train_state.npz") as z, \
+            np.load(os.path.join(work, "finetuned_ImageNet10.npz"
+                                 ".train_state.npz")) as z1:
+        check(bytes(z["__treedef"]) == bytes(z1["__treedef"]),
+              "the T = 2 train state is not a T = 1 train state")
+    check(sorted(_flatten(load_params(ft))) == sorted(_flatten(load_params(
+        os.path.join(work, "finetuned_ImageNet10.npz")))),
+        "the T = 2 checkpoint's leaves differ from T = 1's")
+    out["finetune"] = {
+        "epoch_loss": float(m.group(1)), "one_device": one_ft,
+        "loss_rel_gap": gap, "loss_rel_tol": DP_TRAIN_LOSS_REL_TOL,
+        "epoch_s": float(m.group(3)), "steps": steps,
+        "ms_a_step": 1e3 * float(m.group(3)) / steps,
+        "one_device_ms_a_step": 1e3 * one_ft["epoch_s"] / steps,
+        "max_memory_allocated_bytes": run["max_memory_allocated_bytes"]}
+    print(f"tp fine-tune on two shards of card 0: epoch loss {m.group(1)} vs "
+          f"one device {one_ft['epoch_loss']} (relative gap {gap}); "
+          f"{out['finetune']['ms_a_step']:.1f} ms a step vs "
+          f"{out['finetune']['one_device_ms_a_step']:.1f}; peak memory "
+          f"{run['max_memory_allocated_bytes']} B vs "
+          f"{one_ft['max_memory_allocated_bytes']} B ({card})", flush=True)
+
+    # (e) the dry run on four devices of card 0
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    out["dryrun"] = {"line": dryrun_multichip(4, device="cuda:0"),
+                     "s": time.perf_counter() - t,
+                     "launches": {n: fn.launches
+                                  for n, fn in counters.items()}}
+
+    # (f) the gradient of a train step on two shards of card 0
+    grads = out["train_grads"] = _tp_grads()
+    print(f"tp train-step gradients at full ViT-B/16: {grads['leaves']} "
+          f"leaves, worst max delta / bound "
+          f"{grads['worst_delta_over_bound']:.3g} ({card})", flush=True)
+    emit(out)
+    return out
+
+
 def _counters() -> dict:
     from mcm_tpu_torch.ops import attention, mcm_score, mlp
     return {"bsd_attention": attention.bsd_attention,
@@ -2902,7 +3282,10 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         for k, v in dp_train_phase(work).items():
             launches[k] += v
-    walls["dp_train"] = time.perf_counter() - t
+        walls["dp_train"] = time.perf_counter() - t
+        t = time.perf_counter()
+        tp_phase(work)
+    walls["tp"] = time.perf_counter() - t
     t = time.perf_counter()
     launches.update(bench_phase())
     walls["bench"] = time.perf_counter() - t

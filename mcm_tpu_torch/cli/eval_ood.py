@@ -25,8 +25,7 @@ vit-Linear`` scores the supervised ViT's classifier logits (weights under
 ``--ckpt_dir``, a probe head through ``--finetune_ckpt``).  Images decode
 through the native libjpeg decoder (``MCM_TPU_DISABLE_NATIVE=1``: PIL);
 ``--fast_decode`` (its DCT-prescaled mode) raises where the native decoder
-is unavailable.  ``--model_parallel > 1`` is not ported yet and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+is unavailable.
 
 Data parallel, one process per card::
 
@@ -37,6 +36,14 @@ Each rank runs on ``cuda:LOCAL_RANK`` (``--device cuda:K`` puts every rank
 on card K) and scores its stripe of every batch; rank 0 writes the results.
 ``--n_devices`` unset means the launcher's world size; any other value must
 equal it.
+
+Tensor parallel, ``--model_parallel T``: each process drives one data group
+of ``T`` devices (``cuda``: cards ``LOCAL_RANK·T … LOCAL_RANK·T + T-1``;
+``cuda:K``: every shard on card K; ``cpu``), so ``--n_devices`` counts
+``world size × T`` devices and ``--nproc_per_node`` is ``n_devices / T``;
+``--n_devices T --model_parallel T`` (or ``--model_parallel T`` alone) runs
+in one process.  The towers run over the shards on the math paths, as JAX
+routes them (a forced kernel raises).
 """
 
 import argparse
@@ -123,10 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["fast", "parity", "bf16", "fp32"],
                         help="bf16 fast path vs fp32 parity path")
     parser.add_argument("--model_parallel", default=1, type=int,
-                        help="tensor-parallel size (only 1 is ported)")
+                        help="tensor-parallel size: the devices each "
+                             "process splits the towers' layers over")
     parser.add_argument("--n_devices", default=None, type=int,
-                        help="data-parallel processes, one per card (default:"
-                             " the launcher's world size, 1 without one); "
+                        help="devices of the run, model_parallel per "
+                             "process (default: the launcher's world size × "
+                             "model_parallel); "
                              "launch N with python -m torch.distributed.run "
                              "--standalone --nproc_per_node N -m "
                              "mcm_tpu_torch.cli.eval_ood ... --n_devices N")

@@ -19,6 +19,13 @@ equal stripes (:class:`Striped`, JAX's batch-sharding order), launches the
 program of every stripe on its device before any result is read, and
 :func:`to_host` joins the stripes' results back in row order.  With one
 device nothing is split: the step passes and returns plain tensors.
+
+On a mesh whose model axis is above 1 each data group holds a
+:class:`~.tensor.ShardedCLIP` (its first device receives the group's
+stripe and returns its result) and the towers run over the shards
+(:mod:`.tensor`).  As in JAX (``mcm_tpu/parallel/eval_step.py:84-122``)
+such a mesh runs the math paths: ``attn_impl="auto"`` becomes ``"xla"``, a
+forced kernel raises, and the score takes its torch path.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models import vit as tvit
 from mcm_tpu_torch.models.convert import from_jax_params
 from mcm_tpu_torch.ops.mcm_score import fused_mcm_scores
-from mcm_tpu_torch.parallel.mesh import Mesh, make_mesh
+from mcm_tpu_torch.parallel import tensor as ttensor
+from mcm_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh, make_mesh,
+                                         shard_params, validate_tp)
 from mcm_tpu_torch.scores.clip_scores import (CLIP_SCORES, _scores_from_logits,
                                               ieee_fp32_matmul, l2_normalize)
 from mcm_tpu_torch.scores.mahalanobis import mahalanobis_score
@@ -73,6 +82,29 @@ def _odin_safe(precision: Precision) -> Precision:
     return dataclasses.replace(precision, activation_dtype=torch.float32,
                                softmax_dtype=torch.float32,
                                attn_impl="xla", mlp_impl="xla")
+
+
+def _tp_routing(precision: Precision, mesh: Mesh) -> Precision:
+    """JAX's routing on a tensor-parallel mesh, where its Pallas kernels
+    would be opaque to the partitioner: the towers take the math paths, so
+    ``attn_impl="auto"`` becomes ``"xla"`` and a forced kernel raises with
+    JAX's message."""
+    if mesh.shape[MODEL_AXIS] == 1:
+        return precision
+    if precision.attn_impl == "auto":
+        precision = dataclasses.replace(precision, attn_impl="xla")
+    forced = ([f"attn_impl={precision.attn_impl!r}"]
+              if precision.attn_impl != "xla" else [])
+    if precision.mlp_impl == "pallas":
+        forced.append(f"mlp_impl={precision.mlp_impl!r}")
+    if forced:
+        raise ValueError(
+            f"{', '.join(forced)} cannot run on a tensor-parallel mesh "
+            f"(model axis = {mesh.shape[MODEL_AXIS]}): pallas_call is opaque "
+            f"to the SPMD partitioner, which would all-gather the TP-sharded "
+            f"layer weights around it. Use attn_impl/mlp_impl 'auto' or "
+            f"'xla', or a pure-DP mesh.")
+    return precision
 
 
 class _PerDevice(tuple):
@@ -177,14 +209,19 @@ class EvalStep(_Placement):
                  mesh: Optional[Mesh] = None):
         if score not in CLIP_SCORES + ("odin",):
             raise ValueError(f"unknown score {score!r}")
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        validate_tp(cfg, self.mesh)
+        # ODIN's override first: it routes to the math paths anyway, so a
+        # forced kernel with score="odin" is overridden on every mesh
         if score == "odin":
             precision = _odin_safe(precision)
+        precision = _tp_routing(precision, self.mesh)
+        self.tensor_parallel = self.mesh.shape[MODEL_AXIS] > 1
         self.cfg = cfg
         self.score_name = score
         self.T = float(T)
         self.noise_magnitude = float(noise_magnitude)
         self.precision = precision
-        self.mesh = mesh if mesh is not None else make_mesh(device=device)
         self.device = self.mesh.device
         apply_matmul_policy(precision)
 
@@ -193,14 +230,23 @@ class EvalStep(_Placement):
     def put_params(self, params):
         """Host parameter tree → the model on this step's device, matrices
         stored in the activation dtype (a :class:`Replicated` copy on each
-        device of a local mesh)."""
+        device of a local mesh; on a tensor-parallel mesh each data group's
+        :class:`~.tensor.ShardedCLIP`)."""
         dtype = self.precision.activation_dtype
+        if self.tensor_parallel:
+            groups = shard_params(params, self.mesh, dtype)
+            return groups[0] if len(groups) == 1 else Replicated(groups)
         if len(self.mesh.devices) == 1:
             return from_jax_params(params, self.device, dtype)
         return Replicated(from_jax_params(params, d, dtype)
                           for d in self.mesh.devices)
 
     # -- per-batch programs ----------------------------------------------------
+
+    def _encode_image(self, params, x: torch.Tensor) -> torch.Tensor:
+        """The vision tower (over the shards of a tensor-parallel model)."""
+        return ttensor.encode_image(params, self.cfg.vision, x,
+                                    self.precision)
 
     @torch.inference_mode()
     def features(self, params: tclip.CLIP,
@@ -209,14 +255,16 @@ class EvalStep(_Placement):
             return _over_stripes(self.features, params, images_u8)
         x = normalize_on_device(images_u8, CLIP_MEAN, CLIP_STD,
                                 dtype=self.precision.activation_dtype)
-        return tclip.encode_image(params, self.cfg.vision, x,
-                                  self.precision).float()
+        return self._encode_image(params, x).float()
 
     def score(self, params: tclip.CLIP, images_u8: torch.Tensor,
               text_feats: torch.Tensor,
               impl: Optional[str] = None) -> torch.Tensor:
         """[B] fp32 scores; ``impl`` picks the score path as in
-        :func:`mcm_tpu_torch.ops.mcm_score.fused_mcm_scores`."""
+        :func:`mcm_tpu_torch.ops.mcm_score.fused_mcm_scores` (on a
+        tensor-parallel mesh, unless given, its torch path, as JAX's)."""
+        if impl is None and self.tensor_parallel:
+            impl = "xla"
         if isinstance(images_u8, Striped):
             return _over_stripes(self.score, params, images_u8, text_feats,
                                  impl=impl)
@@ -238,13 +286,10 @@ class EvalStep(_Placement):
         x = normalize_on_device(images_u8, CLIP_MEAN, CLIP_STD,
                                 dtype=self.precision.activation_dtype)
         logits_fn = clip_odin_logits_fn(
-            lambda xi: tclip.encode_image(params, self.cfg.vision, xi,
-                                          self.precision),
-            text_feats, self.T)
+            lambda xi: self._encode_image(params, xi), text_feats, self.T)
         x = _odin_perturb_rows(logits_fn, x, self.noise_magnitude, CLIP_STD)
         with torch.inference_mode():
-            feats = tclip.encode_image(params, self.cfg.vision, x,
-                                       self.precision).float()
+            feats = self._encode_image(params, x).float()
             return fused_mcm_scores(feats, text_feats, "MCM", self.T,
                                     impl=impl)
 
@@ -269,8 +314,9 @@ class EvalStep(_Placement):
         """Encode + L2-normalize all class prompts → [C, D] fp32 on the
         device.  The tail batch is padded to the lead batch shape, as in
         the JAX package (padding rows are dropped).  On a local mesh the
-        first replica encodes them and each device gets a copy, so every
-        replica scores against the same bits."""
+        first replica (or data group) encodes them and each group's first
+        device gets a copy, so every replica scores against the same
+        bits."""
         if isinstance(params, Replicated):
             text = self.encode_text(params[0], input_ids, attention_mask,
                                     batch_size)
@@ -285,7 +331,7 @@ class EvalStep(_Placement):
                 pad = batch_size - ids.shape[0]
                 ids = np.pad(ids, ((0, pad), (0, 0)))
                 mask = np.pad(mask, ((0, pad), (0, 0)))
-            f = tclip.encode_text(
+            f = ttensor.encode_text(
                 params, self.cfg.text,
                 torch.from_numpy(np.asarray(ids, np.int64)).to(self.device),
                 torch.from_numpy(np.asarray(mask, np.int64)).to(self.device),

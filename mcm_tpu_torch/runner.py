@@ -29,8 +29,10 @@ This covers ``--model CLIP`` with every score (the five logit scores,
 ``maha`` and ``odin``), ``--model CLIP-Linear`` (the same, on a fine-tuned
 tree from ``--finetune_ckpt``, as ``mcm_tpu_torch.tools.finetune_clip``
 writes it) and ``--model vit-Linear`` (the supervised ViT + linear head,
-scored from its logits; ``maha`` refused).  ``--model_parallel > 1``
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+scored from its logits; ``maha`` refused).  ``--model_parallel T``
+splits the CLIP towers over ``T`` devices of each process
+(:mod:`mcm_tpu_torch.parallel.tensor`); ``vit-Linear`` refuses it, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -130,9 +132,6 @@ class RunConfig:
 
 def check_ported(cfg: RunConfig) -> None:
     """Raise for every option of the JAX runner the port does not have."""
-    if cfg.model_parallel > 1:
-        raise NotImplementedError("not ported yet: --model_parallel > 1: "
-                                  "ROADMAP.md Queue 1, item 9b")
     if cfg.model not in ("CLIP", "CLIP-Linear", "vit-Linear"):
         raise ValueError(f"unknown --model {cfg.model!r}")
 
@@ -735,6 +734,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
     # fully cached --resume never uploads them.
     params_host, tokenizer, step = build_model_and_step(cfg, log,
                                                         defer_put=True)
+    log.debug(f"mesh: {step.mesh.describe()}")
     _params: Dict[str, object] = {}
 
     def dev_params():

@@ -21,7 +21,11 @@ threshold, scoring request-sized batches.  The JAX package's
   ``n_devices``): a model replica on each device, every padded batch split
   into one stripe per device, all stripes launched before any is read, and
   the scores joined back in row order
-  (:func:`~mcm_tpu_torch.parallel.eval_step.to_host`).
+  (:func:`~mcm_tpu_torch.parallel.eval_step.to_host`);
+* ``model_parallel`` T > 1 groups them ``T`` consecutive devices a data
+  group, each group one copy of the model split over its devices
+  (:mod:`mcm_tpu_torch.parallel.tensor`): a stripe per group, and every
+  bucket must divide by the data axis ``n_devices / T``.
 
 Requests the detector refuses (images of the wrong shape, a score family
 ``classify_images`` cannot reproduce) raise :class:`RequestRefused`, the
@@ -67,10 +71,11 @@ class OODDetector:
     ``n_devices`` (0 or None: every visible device) make the mesh
     (:func:`~mcm_tpu_torch.parallel.mesh.make_local_mesh`): ``cuda`` is cards
     ``0 … n-1``, ``cuda:K`` puts every replica on card K, ``cpu`` on the
-    CPU.  Every bucket must divide by ``n_devices``.  ``model_parallel > 1``
-    raises ``NotImplementedError`` naming ``ROADMAP.md`` Queue 1, item 9b,
-    and so does a detector built inside a process group of several ranks
-    (``ValueError``): serving is one process.
+    CPU.  ``model_parallel`` consecutive devices form a data group that
+    splits the towers' layers; every bucket must divide by the data axis,
+    ``n_devices / model_parallel`` (JAX's check).  A detector built inside
+    a process group of several ranks raises (``ValueError``): serving is
+    one process.
     """
 
     def __init__(self, class_names: Sequence[str], clip_ckpt: str = "ViT-B/16",
@@ -95,7 +100,8 @@ class OODDetector:
                         template_ensemble=template_ensemble,
                         allow_random_weights=allow_random_weights,
                         noise_magnitude=noise_magnitude,
-                        image_size=image_size, n_devices=mesh.data,
+                        image_size=image_size,
+                        n_devices=mesh.data * mesh.model,
                         model_parallel=model_parallel, device=device)
         self.cfg = cfg
         self.image_size = image_size

@@ -19,8 +19,9 @@ the network shape of the same capability, the JAX package's
   batches, coalescing ratio, latency quantiles), the detector's replicas
   per device and each card's peak allocated memory;
 * ``--n-devices N`` serves on N devices in this one process (a replica on
-  each, every bucket split over them); ``--device cuda:K`` puts them all on
-  card K.
+  each, every bucket split over them; ``--model-parallel T``: a replica
+  split over each ``T`` consecutive devices); ``--device cuda:K`` puts
+  them all on card K.
 
 Endpoints
 ---------
@@ -803,7 +804,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         "replica on each, every batch bucket split over "
                         "them (each bucket must divide by the count)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="tensor-parallel span; only 1 is ported")
+                   help="tensor-parallel span: each replica's layers "
+                        "split over this many consecutive devices (the "
+                        "buckets must divide by n-devices / span)")
     p.add_argument("--warmup", default="score",
                    choices=["none", "score", "all"],
                    help="run every batch bucket BEFORE binding the port "
@@ -874,9 +877,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     signal.signal(signal.SIGTERM, _graceful)
     signal.signal(signal.SIGINT, _graceful)
 
-    log.info("serving on %s:%d (buckets %s, devices %s)", args.host,
-             server.port, detector.batch_sizes,
-             ", ".join(str(d) for d in detector.step.mesh.devices))
+    log.info("serving on %s:%d (buckets %s, devices %s; mesh %s)",
+             args.host, server.port, detector.batch_sizes,
+             ", ".join(str(d) for d in detector.step.mesh.devices),
+             detector.step.mesh.describe())
     server.serve_forever()
     log.info("shutdown complete")
 

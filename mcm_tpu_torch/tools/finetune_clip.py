@@ -19,8 +19,12 @@ Data-parallel over N cards, one process each, ``-b`` the global batch:
 
 (``--device cuda:K`` puts every rank on card K).  ``--n_devices`` is the
 world size (unset: the launcher's); above 1 without the launcher it raises
-with that line.  ``--model_parallel`` above 1 raises: tensor parallelism
-is ``ROADMAP.md`` Queue 1, item 9b.
+with that line.  ``--model_parallel T`` splits both towers over ``T``
+devices of each rank (``cuda``: cards ``LOCAL_RANK·T …``; ``cuda:K``: every
+shard on card K), so ``--n_devices`` counts ``world size × T`` and
+``--n_devices T --model_parallel T`` is one process; the checkpoint and
+its train state are written unsharded, as a ``--model_parallel 1`` run
+writes them.
 """
 
 from __future__ import annotations

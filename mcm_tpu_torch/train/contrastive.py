@@ -10,7 +10,10 @@
   global batch, the features and captions are gathered
   (:func:`~mcm_tpu_torch.parallel.multihost.gather_rows`) into JAX's
   global B×B loss, and one all-reduce sums the gradients before the
-  identical AdamW step on every rank;
+  identical AdamW step on every rank; on a mesh whose model axis is
+  ``T`` > 1 both towers run over ``T`` shards of the model
+  (:mod:`mcm_tpu_torch.parallel.tensor`), one AdamW steps every shard's
+  leaves and their moments live on the shard's device;
 * gradient checkpointing over each whole tower (``jax.checkpoint`` wraps
   ``encode_image`` and ``encode_text`` in JAX; here
   ``torch.utils.checkpoint``), trading a second forward for memory.
@@ -38,7 +41,8 @@ from mcm_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD, normalize_on_devi
 from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models.convert import from_jax_params
 from mcm_tpu_torch.parallel import multihost
-from mcm_tpu_torch.parallel.mesh import Mesh
+from mcm_tpu_torch.parallel import tensor as ttensor
+from mcm_tpu_torch.parallel.mesh import Mesh, shard_params, validate_tp
 from mcm_tpu_torch.scores.clip_scores import l2_normalize
 
 #: CLIP's temperature cap: logit_scale is clamped so exp(·) ≤ 100 after
@@ -123,9 +127,12 @@ def _duplicate_caption_mask(input_ids: torch.Tensor,
 
 
 class TrainState(NamedTuple):
-    """The model (fp32 leaves that require grad), its optimizer (which
-    holds the AdamW moments) and the count of steps taken.  The step
-    updates the first two in place and returns a new tuple."""
+    """The model (fp32 leaves that require grad: a
+    :class:`~mcm_tpu_torch.models.clip.CLIP`, or a
+    :class:`~mcm_tpu_torch.parallel.tensor.ShardedCLIP` on a
+    tensor-parallel mesh), its optimizer (which holds the AdamW moments)
+    and the count of steps taken.  The step updates the first two in place
+    and returns a new tuple."""
 
     params: tclip.CLIP
     opt_state: torch.optim.Optimizer
@@ -147,8 +154,9 @@ def make_train_step(cfg: CLIPConfig,
                     mesh: Optional[Mesh] = None
                     ) -> Tuple[Callable, Callable]:
     """Build ``(init_state, train_step)`` on one device, or on this rank's
-    card of ``mesh`` (:func:`~mcm_tpu_torch.parallel.mesh.make_mesh`; its
-    device replaces ``device``).
+    data group of ``mesh`` (:func:`~mcm_tpu_torch.parallel.mesh.make_mesh`;
+    its first device replaces ``device``; a model axis above 1 shards the
+    towers over the group's devices).
 
     ``init_state(params)`` takes the numpy tree (``init_clip``,
     ``load_params``); ``train_step(state, images_u8 [B,H,W,3], input_ids
@@ -163,14 +171,18 @@ def make_train_step(cfg: CLIPConfig,
     the trainable bsd route (the kernel's forward, the math path's
     gradient) and, as JAX's, is refused on a mesh of more than one device;
     anything else trains on the math path (``"xla"``).  The MLP is always
-    the unfused math path."""
+    the unfused math path.  As JAX's, the towers' split is checked
+    against the mesh first (``validate_tp``)."""
     if optimizer is None:
         # CLIP recipe: weight decay on the ndim >= 2 leaves (decay_matrices)
         optimizer = adamw(1e-5, weight_decay=0.2, mask=decay_matrices)
     device = resolve_device(device) if mesh is None else mesh.device
     world = 1 if mesh is None else mesh.data
+    tp = 1 if mesh is None else mesh.model
+    if mesh is not None:
+        validate_tp(cfg, mesh)
     if precision.attn_impl == "pallas_bsd_vjp":
-        if world != 1:
+        if world * tp != 1:
             raise ValueError("attn_impl=pallas_bsd_vjp cannot be "
                              "pjit-partitioned — use a single-device mesh "
                              "or attn_impl='xla'")
@@ -181,10 +193,10 @@ def make_train_step(cfg: CLIPConfig,
     apply_matmul_policy(precision)
 
     def encode_image(params, x):
-        return tclip.encode_image(params, cfg.vision, x, precision)
+        return ttensor.encode_image(params, cfg.vision, x, precision)
 
     def encode_text(params, ids, mask):
-        return tclip.encode_text(params, cfg.text, ids, mask, precision)
+        return ttensor.encode_text(params, cfg.text, ids, mask, precision)
 
     def tower(fn, params, *args):
         if remat:
@@ -215,8 +227,9 @@ def make_train_step(cfg: CLIPConfig,
             # JAX's global B×B loss: every rank's rows, this rank's live
             img, txt, ids, mask = (collective(multihost.gather_rows, t)
                                    for t in (img, txt, ids, mask))
+        logit_scale = ttensor.whole_leaves(params)["logit_scale"]
         loss = clip_contrastive_loss(
-            img, txt, params["logit_scale"],
+            img, txt, logit_scale,
             positive_mask=_duplicate_caption_mask(ids, mask))
         loss.backward()
         if world > 1:
@@ -224,12 +237,20 @@ def make_train_step(cfg: CLIPConfig,
         opt.step()
         with torch.no_grad():
             # the CLIP temperature clamp (see MAX_LOGIT_SCALE)
-            params["logit_scale"].clamp_(0.0, MAX_LOGIT_SCALE)
+            logit_scale.clamp_(0.0, MAX_LOGIT_SCALE)
         return TrainState(params, opt, state.step + 1), loss.detach()
 
     def init_state(params) -> TrainState:
-        model = from_jax_params(params, device, trainable=True)
-        opt = optimizer(list(model.named_parameters()))
+        if tp > 1:
+            model = shard_params(params, mesh, trainable=True)[0]
+            # each leaf's slices side by side, in the unsharded tree's order
+            named = [(f"{name}.{j}", p)
+                     for name, parts, _ in ttensor.logical_parameters(model)
+                     for j, p in enumerate(parts)]
+        else:
+            model = from_jax_params(params, device, trainable=True)
+            named = list(model.named_parameters())
+        opt = optimizer(named)
         init_optimizer_state(opt)
         return TrainState(model, opt, 0)
 
@@ -242,9 +263,10 @@ def _sum_gradients(params: tclip.CLIP, collective) -> None:
     the sum over the ranks is the global loss's gradient: one all-reduce of
     every gradient.  ``logit_scale`` is the exception: it enters the loss
     directly, and every rank computed the same global loss, so each holds
-    its whole gradient already; only rank 0's copy joins the sum."""
+    its whole gradient already; only rank 0's copy joins the sum.  Every
+    shard of a tensor-parallel model sums with its counterparts."""
     if multihost.process_index() != 0:
-        params["logit_scale"].grad.zero_()
+        ttensor.whole_leaves(params)["logit_scale"].grad.zero_()
     grads = [p.grad for p in params.parameters() if p.grad is not None]
     collective(multihost.all_reduce_sum_, grads)
 

@@ -14,6 +14,9 @@ permutation, decodes its stripe of each global batch and takes the
 data-parallel step; the parameters stay equal on every rank, so rank 0
 alone logs and writes both files (where JAX writes orbax for params that
 span processes), and it alone decides whether ``resume`` finds a state.
+A tensor-parallel model is written unsharded: both files have the layout
+of a run with a model axis of 1, and a resume shards them again, so a
+state saved at one ``model_parallel`` resumes at another.
 """
 
 from __future__ import annotations
@@ -27,9 +30,10 @@ import torch
 
 from mcm_tpu_torch.config import CLIPConfig, Precision
 from mcm_tpu_torch.data.pipeline import DataPipeline
-from mcm_tpu_torch.models.convert import save_params, to_jax_params
+from mcm_tpu_torch.models.convert import save_params
 from mcm_tpu_torch.models.init import init_clip
 from mcm_tpu_torch.parallel import multihost
+from mcm_tpu_torch.parallel import tensor as ttensor
 from mcm_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mcm_tpu_torch.train.checkpoint import load_train_state, save_train_state
 from mcm_tpu_torch.train.contrastive import (OptimizerFactory, TrainState,
@@ -155,7 +159,7 @@ def _save_checkpoint(state: TrainState, ckpt_path: str, state_path: str,
     the same on every rank, so rank 0 writes both files (JAX writes orbax
     when its params span processes) and the others wait for it."""
     if multihost.process_index() == 0:
-        save_params(to_jax_params(state.params), ckpt_path)
+        save_params(ttensor.host_tree(state.params), ckpt_path)
         save_train_state(state, state_path, epoch=epoch)
         log(f"checkpoint -> {ckpt_path}")
     multihost.barrier()

@@ -191,22 +191,28 @@ def test_cli_without_card_raises_unless_cpu(tmp_path, monkeypatch):
                                    ["--fast_decode", "--n_devices", "2"],
                                    ["--model_parallel", "2"]])
 def test_unported_options_raise(tmp_path, monkeypatch, flags):
-    """What is not ported raises naming its item (``--model_parallel``);
-    ``--n_devices 2`` in one process raises naming the launcher, which
+    """``--n_devices 2`` in one process raises naming the launcher, which
     starts one process per device (no silent fall-back to one device).
-    ``--model CLIP-Linear`` and ``--fast_decode`` are ported, and with one
-    of those options still raise for it."""
+    ``--model_parallel 2`` is ported: on these flags (no dataset tree, no
+    ``--finetune_ckpt``) the port raises what the JAX CLI raises for the
+    same call, after the tensor-parallel mesh is made."""
     from mcm_tpu_torch.cli.eval_ood import main
     monkeypatch.chdir(tmp_path)
     if "--n_devices" in flags:
-        want = pytest.raises(ValueError, match="torch.distributed.run "
-                             "--standalone --nproc_per_node 2 -m "
-                             "mcm_tpu_torch.cli.eval_ood")
-    else:
-        want = pytest.raises(NotImplementedError,
-                             match="ROADMAP.md Queue 1, item 9b")
-    with want:
+        with pytest.raises(ValueError, match="torch.distributed.run "
+                           "--standalone --nproc_per_node 2 -m "
+                           "mcm_tpu_torch.cli.eval_ood"):
+            main(["--device", "cpu", "--allow_random_weights"] + flags)
+        return
+    from mcm_tpu.cli.eval_ood import main as jax_main
+    monkeypatch.setattr(sys, "argv", ["eval_ood_detection.py",
+                                      "--allow_random_weights"] + flags)
+    with pytest.raises(Exception) as want:
+        jax_main()
+    with pytest.raises(type(want.value)) as got:
         main(["--device", "cpu", "--allow_random_weights"] + flags)
+    assert str(got.value) == str(want.value)
+    assert isinstance(got.value, (ValueError, FileNotFoundError))
 
 
 def test_clip_linear_requires_finetune_ckpt(tmp_path, monkeypatch):

@@ -17,10 +17,13 @@ at ``-b 8``: the last ID batch leaves rank 1's stripe empty, so that rank
 scores a batch of padding to stay in lockstep.  One launch runs, in order:
 MCM; MCM again with one batch per all-gather; ``--resume`` of the first
 (fully cached: the step's device entry points raise if reached);
-``--score maha`` (160 train images, N > D); ``--score odin``; then a direct
-gather whose ``total`` leaves a chunk out (it must still be joined).  A
-second launch has rank 1 raise inside its run: both processes must exit
-non-zero, quickly, instead of hanging in a collective.
+``--score maha`` (160 train images, N > D); ``--score odin``; MCM at
+``--n_devices 4 --model_parallel 2`` (each rank's stripe through two
+shards of the model, held against JAX's ``run_eval`` on ``make_mesh(4,
+model_parallel=2)``, the counterpart of JAX's ``dp-tp-dedup`` case); then
+a direct gather whose ``total`` leaves a chunk out (it must still be
+joined).  A second launch has rank 1 raise inside its run: both processes
+must exit non-zero, quickly, instead of hanging in a collective.
 """
 
 import json
@@ -51,6 +54,8 @@ RUNS = [  # (name, score, extra flags, worker options)
     ("maha", "maha", [], {}),
     ("odin", "odin", [], {}),
 ]
+#: the tensor-parallel run of the launch, after RUNS
+TP_RUN = ("mcm_tp", "mcm", ["--n_devices", "4", "--model_parallel", "2"], {})
 LAUNCH_TIMEOUT_S = 300
 
 
@@ -125,7 +130,7 @@ def pair(tmp_path_factory, root):
     cwd = tmp_path_factory.mktemp("dp_pair")
     runs = [{"argv": COMMON + SCORES[score] + flags
              + ["--root-dir", root, "--name", name], **opts}
-            for name, score, flags, opts in RUNS]
+            for name, score, flags, opts in RUNS + [TP_RUN]]
     rcs, outs, seconds = _launch(str(cwd), {"out": "report", "runs": runs,
                                             "assemble": True})
     for rc, out in zip(rcs, outs):
@@ -186,6 +191,47 @@ def test_two_process_csv_matches_jax(pair, jax_runs, name, score):
     with open(os.path.join(_log_dir(cwd, SCORES[score][1], name),
                            f"{name}.csv")) as f:
         assert f.read() == want
+
+
+@pytest.fixture(scope="module")
+def jax_tp_run(tmp_path_factory, root):
+    """JAX's ``run_eval`` on a data 2 × model 2 mesh of four devices."""
+    from mcm_tpu.runner import RunConfig, run_eval
+
+    cwd = tmp_path_factory.mktemp("dp_jax_tp")
+    with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mp.setenv("MCM_TPU_TEST_TINY_B16", "1")
+        mp.chdir(cwd)
+        run_eval(RunConfig(
+            in_dataset="ImageNet10", root_dir=root, name="jax", batch_size=8,
+            score="MCM", precision="parity", n_devices=4, model_parallel=2,
+            num_workers=2, allow_random_weights=True, out_datasets=["dtd"]))
+    return _log_dir(cwd, "MCM", "jax")
+
+
+@pytest.mark.parametrize("dataset", ["ID_ImageNet10", "dtd"])
+def test_two_process_tp_scores_match_jax(pair, jax_tp_run, dataset):
+    cwd, (r0, r1) = pair
+    want = np.load(os.path.join(jax_tp_run, f"{dataset}_scores.npy"))
+    got = np.load(os.path.join(_log_dir(cwd, "MCM", TP_RUN[0]),
+                               f"{dataset}_scores.npy"))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
+    # each rank put its stripe of 4 rows on its group's first device
+    assert r0["runs"][-1]["batch_rows"] == r1["runs"][-1]["batch_rows"] \
+        == [4] * 5
+
+
+def test_two_process_tp_csv_matches_jax(pair, jax_tp_run):
+    cwd, _ = pair
+    with open(os.path.join(jax_tp_run, "jax.csv")) as f:
+        want = f.read()
+    log_dir = _log_dir(cwd, "MCM", TP_RUN[0])
+    with open(os.path.join(log_dir, f"{TP_RUN[0]}.csv")) as f:
+        assert f.read() == want
+    with open(os.path.join(log_dir, "ood_eval_info.log")) as f:
+        assert "mesh: data 2 × model 2 on cpu, cpu" in f.read()
 
 
 def test_ranks_step_in_lockstep(pair):

@@ -13,7 +13,11 @@ step's loss within rel 1e-5, the written params within lr/10 (the key
 biases, whose gradient is zero but for rounding, within 2·lr a step).
 The two ranks must end bit-equal, rank 0 alone writes the checkpoint, and a
 ``resume`` launch ends where the uninterrupted one does.  The same launch
-runs the ``finetune_clip`` CLI with ``--n_devices 2``, and ``--model
+takes two steps at ``--n_devices 4 --model_parallel 2`` (each rank a data
+group of two shards), held against JAX's ``make_train_step`` on
+``make_mesh(4, model_parallel=2)``: both losses, the first step's
+gradient leaf by leaf and the parameters after the second.  It also runs
+the ``finetune_clip`` CLI with ``--n_devices 2``, and ``--model
 CLIP-Linear`` then evaluates its checkpoint in this process.
 
 Beside it, in one process: the gather with gradient against a plain
@@ -80,6 +84,12 @@ def launch(tmp_path_factory, trees):
                 str(trees / "datasets"), "--epochs", "1", "-b", "4",
                 "--allow_random_weights", "--num_workers", "2", "--out", ft,
                 "--device", "cpu", "--n_devices", "2"]}
+    rng = np.random.default_rng(5)
+    ids = rng.integers(1, 512, (8, 16)).astype(np.int32)
+    ids[5] = ids[1]                      # a duplicate caption across ranks
+    np.savez(cwd / "tp_batch.npz", ids=ids, mask=np.ones_like(ids),
+             images=rng.integers(0, 256, (8, 32, 32, 3), dtype=np.uint8))
+    spec["tp_batch"] = str(cwd / "tp_batch.npz")
     spec_path = cwd / "spec.json"
     spec_path.write_text(json.dumps(spec))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, TESTS]),
@@ -202,6 +212,70 @@ def test_resume_launch_ends_where_the_uninterrupted_one_does(launch):
                 np.load(cwd / f"report.rank{rank}.b.npz") as b:
             for k in a.files:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def jax_tp_run(launch):
+    """JAX's train step on ``make_mesh(4, model_parallel=2)`` over the
+    launch's global batch: the first step's loss and gradient, and the
+    losses and parameters of two default AdamW steps."""
+    import jax
+    from mcm_tpu.config import Precision as JP
+    from mcm_tpu.parallel import make_mesh as jmake_mesh
+    from mcm_tpu.parallel import shard_params as jshard
+    from mcm_tpu.train import make_train_step as jmake_step
+    from test_torch_tp import _jax_cfg, jax_grads
+
+    from mcm_tpu_torch.models.convert import _flatten
+    from mcm_tpu_torch.models.init import init_clip
+
+    cwd = launch[0]
+    with np.load(cwd / "tp_batch.npz") as z:
+        batch = [z[k] for k in ("images", "ids", "mask")]
+    params = init_clip(0, _tiny_cfg())
+    mesh = jmake_mesh(4, model_parallel=2)
+    loss, grads = jax_grads(_tiny_cfg(), params, batch, mesh)
+    init, step = jmake_step(_jax_cfg(_tiny_cfg()), precision=JP.parity(),
+                            mesh=mesh, remat=False)
+    state = init(jshard(params, mesh))
+    losses = []
+    for _ in range(2):
+        state, l = step(state, *batch)
+        losses.append(float(l))
+    assert losses[0] == loss
+    return losses, grads, _flatten(jax.tree_util.tree_map(np.asarray,
+                                                          state.params))
+
+
+def test_two_ranks_at_model_parallel_2_match_jax(launch, jax_tp_run):
+    """Two ranks × two shards: every rank's losses within rel 1e-5 of
+    JAX's, its gradient after the all-reduce within
+    ``grad_mismatches``' bounds of JAX's (each split leaf's shards joined),
+    its parameters after two AdamW steps within lr/10 (the key biases
+    2·lr a step), and both ranks' gradients and parameters bit-equal."""
+    from test_torch_tp import grad_mismatches
+    cwd, reports, _ = launch
+    want_losses, want_grads, want_params = jax_tp_run
+    trees = {}
+    for rank, r in enumerate(reports):
+        run = r["runs"]["tp"]
+        assert run["mesh"] == "data 2 × model 2 on cpu, cpu"
+        np.testing.assert_allclose(run["losses"], want_losses, rtol=1e-5,
+                                   atol=0)
+        with np.load(cwd / f"report.rank{rank}.tp_grads.npz") as g, \
+                np.load(cwd / f"report.rank{rank}.tp.npz") as p:
+            grads, params = dict(g), dict(p)
+        assert sorted(grads) == sorted(want_grads)
+        assert grad_mismatches(grads, want_grads) == []
+        assert sorted(params) == sorted(want_params)
+        for k, w in want_params.items():
+            bound = 2 * LR * 2 if k.endswith("attn/bk") else LR / 10
+            np.testing.assert_allclose(params[k], w, rtol=0, atol=bound,
+                                       err_msg=k)
+        trees[rank] = (grads, params)
+    for a, b in zip(trees[0], trees[1]):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_finetune_cli_on_two_ranks_feeds_clip_linear(launch, trees,

@@ -12,11 +12,17 @@ It joins the gloo group (``multihost.initialize``) and runs, in order:
   loss, the log lines this rank wrote and the checkpoint writes it made;
 * the same run in two parts, one epoch then ``resume=True`` to two
   (run ``b``);
+* two steps of ``make_train_step`` on ``make_mesh(4, model_parallel=2)``
+  (each rank a data group of two shards on the CPU) over this rank's
+  stripe of the spec's global batch (run ``tp``), recording both losses,
+  the first step's gradient after the all-reduce and the final
+  parameters;
 * the ``finetune_clip`` CLI with ``--n_devices 2 --device cpu`` on the
   spec's pet37 tree (the tiny ViT-B/16 double).
 
-Each rank writes its final parameters of ``a`` and ``b`` to
-``<out>.rank<r>.<run>.npz`` and a report ``<out>.rank<r>.json``.
+Each rank writes its final parameters of ``a``, ``b`` and ``tp`` to
+``<out>.rank<r>.<run>.npz``, the gradient of ``tp`` to
+``<out>.rank<r>.tp_grads.npz`` and a report ``<out>.rank<r>.json``.
 """
 
 import json
@@ -66,6 +72,41 @@ def _run(spec, **over):
     return state, losses, logs
 
 
+def _tp_run(spec, rank):
+    """Run ``tp``: the losses and the mesh; the gradient and the final
+    parameters, each leaf whole, in files."""
+    import numpy as np
+
+    from test_torch_tp import joined_grads
+
+    from mcm_tpu_torch.config import Precision
+    from mcm_tpu_torch.models.convert import _flatten
+    from mcm_tpu_torch.models.init import init_clip
+    from mcm_tpu_torch.parallel.mesh import make_mesh
+    from mcm_tpu_torch.parallel.tensor import host_tree
+    from mcm_tpu_torch.train import make_train_step
+
+    cfg = _tiny_cfg(spec)
+    mesh = make_mesh(4, 2, device="cpu")
+    with np.load(spec["tp_batch"]) as z:
+        stripe = len(z["ids"]) // mesh.data
+        batch = [z[k][rank * stripe:(rank + 1) * stripe]
+                 for k in ("images", "ids", "mask")]
+    init_state, step = make_train_step(cfg, precision=Precision.parity(),
+                                       mesh=mesh, remat=False)
+    state = init_state(init_clip(0, cfg))
+    losses = []
+    for i in range(2):
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+        if i == 0:
+            np.savez(f"{spec['out']}.rank{rank}.tp_grads.npz",
+                     **joined_grads(state.params))
+    np.savez(f"{spec['out']}.rank{rank}.tp.npz",
+             **_flatten(host_tree(state.params)))
+    return {"losses": losses, "mesh": mesh.describe()}
+
+
 def main() -> None:
     with open(sys.argv[1]) as f:
         spec = json.load(f)
@@ -99,6 +140,7 @@ def main() -> None:
                                resume=True)
         report["runs"]["b"] = {"losses": losses, "logs": logs,
                                "step": b.step}
+        report["runs"]["tp"] = _tp_run(spec, rank)
     finally:
         loop.save_params, loop.save_train_state = save_params, save_state
     for name, state in (("a", a), ("b", b)):

@@ -34,7 +34,9 @@ against one pass; the serving detector on two replicas of one card
 launches the kernels on each and scores as one replica does.  Not a
 kernel, but checked on
 the card's host: the native JPEG decoder builds, loads and passes its
-self-test there.
+self-test there.  Tensor parallelism: two shards of card 0 score as one
+device does (parity at rtol 1e-4 / atol 1e-5, fast at 5e-3 / 5e-4),
+launch no kernel, and refuse a forced one.
 """
 
 import dataclasses
@@ -946,6 +948,73 @@ def test_detector_on_two_replicas_of_one_card(cuda, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-4)
     np.testing.assert_array_equal(dets[2].classify_images(images)[0],
                                   dets[1].classify_images(images)[0])
+
+
+# -- tensor parallelism: two shards of card 0 ----------------------------------
+
+def _tp_steps(precision, score="MCM"):
+    """The tiny ViT-B/16 double's one-device step and its step on two
+    shards of card 0, with the model, a batch of 8 and prompt features."""
+    import os
+    import warnings
+
+    from mcm_tpu_torch.config import CLIP_CONFIGS
+    from mcm_tpu_torch.models.init import init_clip
+    from mcm_tpu_torch.parallel import EvalStep
+    from mcm_tpu_torch.parallel.mesh import make_local_mesh
+    os.environ["MCM_TPU_TEST_TINY_B16"] = "1"
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cfg = CLIP_CONFIGS["ViT-B/16"]()
+    finally:
+        del os.environ["MCM_TPU_TEST_TINY_B16"]
+    params = init_clip(0, cfg)
+    rng = np.random.default_rng(11)
+    images = rng.integers(0, 256, size=(8, 224, 224, 3), dtype=np.uint8)
+    text = rng.standard_normal((5, cfg.embed_dim)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    out = []
+    for tp in (1, 2):
+        step = EvalStep(cfg, score=score, precision=precision,
+                        mesh=make_local_mesh(tp, tp, device="cuda:0"))
+        out.append((step, step.put_params(params), step.put_batch(images),
+                    step.put_replicated(text)))
+    return out
+
+
+@pytest.mark.parametrize("precision,rtol,atol", [
+    (Precision.parity(), 1e-4, 1e-5), (Precision.fast(), 5e-3, 5e-4)])
+def test_two_shards_of_one_card_match_one_device(cuda, precision, rtol,
+                                                 atol):
+    """T = 2 on cuda:0 against one device: parity at the JAX package's TP
+    serving bound, fast at the bound of the math path against the kernels
+    (the one-device step launches bsd and MCM; the shards launch none, as
+    JAX routes a tensor-parallel mesh)."""
+    one, two = _tp_steps(precision)
+    before = [fn.launches for fn in (attention.bsd_attention,
+                                     mcm_score.mcm_score, mlp.fused_mlp)]
+    got = two[0].score(*two[1:]).cpu().numpy()
+    assert [fn.launches for fn in (attention.bsd_attention,
+                                   mcm_score.mcm_score,
+                                   mlp.fused_mlp)] == before
+    assert two[0].precision.attn_impl == "xla"
+    want = one[0].score(*one[1:]).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("over", [{"attn_impl": "pallas_bsd"},
+                                  {"attn_impl": "flash"},
+                                  {"mlp_impl": "pallas"}])
+def test_forced_kernel_refused_on_two_shards_of_one_card(cuda, over):
+    from mcm_tpu_torch.config import CLIP_CONFIGS
+    from mcm_tpu_torch.parallel import EvalStep
+    from mcm_tpu_torch.parallel.mesh import make_local_mesh
+    with pytest.raises(ValueError, match="tensor-parallel mesh .*SPMD "
+                                         "partitioner"):
+        EvalStep(CLIP_CONFIGS["ViT-B/16"](), mesh=make_local_mesh(
+            2, 2, device="cuda:0"), precision=dataclasses.replace(
+                Precision.fast(), **over))
 
 
 # -- training: the trainable attention and matmul_f32's gradient -------------

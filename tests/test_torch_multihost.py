@@ -171,15 +171,21 @@ def test_mesh_world_of_one():
 
 def test_mesh_refuses_devices_it_does_not_have(monkeypatch):
     """``--n_devices 2`` in one process names the launcher; against a group
-    of another size it names the world size; tensor parallelism names its
-    item.  No fall-back to fewer devices than asked for."""
+    of another size it names the world size; a device count that
+    ``model_parallel`` does not divide raises JAX's error.  No fall-back to
+    fewer devices than asked for."""
     with pytest.raises(ValueError, match=r"no process group is up; launch "
                        r"them with: python -m torch.distributed.run "
                        r"--standalone --nproc_per_node 2 -m "
                        r"mcm_tpu_torch.cli.eval_ood \.\.\. --n_devices 2"):
         tmesh.make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    from mcm_tpu.parallel import make_mesh as jax_make_mesh
+    with pytest.raises(ValueError) as want:
+        jax_make_mesh(1, model_parallel=2)
+    with pytest.raises(ValueError) as got:
         tmesh.make_mesh(1, model_parallel=2, device="cpu")
+    assert str(got.value) == str(want.value) == (
+        "1 devices not divisible by model_parallel=2")
     monkeypatch.setattr(mh, "process_count", lambda: 2)
     for n in (1, 3):
         with pytest.raises(ValueError, match=f"--n_devices {n} differs from "

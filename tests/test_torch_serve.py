@@ -289,9 +289,17 @@ def test_detector_rejects_bad_configurations():
     with pytest.raises(ValueError, match="positive"):
         serve.OODDetector(class_names=["a"], allow_random_weights=True,
                           batch_sizes=(0, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9b"):
+    # one device and model_parallel=2: JAX's detector raises its mesh's
+    # error, and so does the port's
+    from mcm_tpu import serve as jax_serve
+    with pytest.raises(ValueError) as want:
+        jax_serve.OODDetector(class_names=["a"], allow_random_weights=True,
+                              model_parallel=2)
+    with pytest.raises(ValueError) as got:
         serve.OODDetector(class_names=["a"], allow_random_weights=True,
                           device="cpu", model_parallel=2)
+    assert str(got.value) == str(want.value) == (
+        "1 devices not divisible by model_parallel=2")
     # two devices serve (buckets that split over them)
     two = _build(serve, device="cpu", n_devices=2, batch_sizes=(2, 4))
     assert two.step.mesh.devices == (torch.device("cpu"),) * 2

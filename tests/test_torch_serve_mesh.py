@@ -188,8 +188,19 @@ def test_more_cards_than_visible_raises(monkeypatch):
         torch.device("cuda", 0),)
     assert make_local_mesh(2, device="cuda:0").devices == (
         torch.device("cuda", 0),) * 2
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    from mcm_tpu.parallel import make_mesh as jax_make_mesh
+    with pytest.raises(ValueError) as want:
+        jax_make_mesh(1, model_parallel=2)
+    with pytest.raises(ValueError) as got:
         make_local_mesh(1, model_parallel=2, device="cpu")
+    assert str(got.value) == str(want.value)
+    # two consecutive devices a group: cuda:0, cuda:1 then cuda:2, cuda:3
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    tp = make_local_mesh(4, model_parallel=2, device="cuda")
+    assert tp.groups == ((torch.device("cuda", 0), torch.device("cuda", 1)),
+                         (torch.device("cuda", 2), torch.device("cuda", 3)))
+    assert tp.devices == (torch.device("cuda", 0), torch.device("cuda", 2))
+    assert tp.shape == {"data": 2, "model": 2}
 
 
 def test_detector_inside_a_process_group_raises(monkeypatch, ckpt_dir):
