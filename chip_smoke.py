@@ -168,6 +168,20 @@
    T = 1: the loss within rel 1e-5 and every leaf's gradient (each split
    leaf's shards joined) within 1e-4 of its largest |g| (a leaf that is
    all rounding, the key biases, within 1e-6 of the largest of all).
+   parity phase, after the slice phase: the card counterpart of
+   ``tests/test_golden_parity.py`` through the port's
+   ``tools.parity_check.hold_golden``: the full-width ViT-B/16 towers on
+   the weights the slice phase converted (the seed-0 snapshot that
+   ``tests/goldens/clip_synth_b16.npz`` was recorded from by HF's
+   ``CLIPModel``) and ViT-L/14 synthesized at ``clip_synth_l14.npz``'s
+   seed, on each golden's probe inputs: in parity every recorded hidden
+   of both towers (the first 48 tokens) and the features within 5e-4
+   relative of HF's, MCM within 1e-5; then in fast the features and MCM
+   within ``parity_check check``'s 3e-2; each layer's error and the wall
+   printed.  scale phase: ``tools.scale_soak`` at its default 10,000 ID +
+   4 × 2,048 OOD images (the eval CLI in a subprocess, cold then
+   ``--resume``, the artifacts, the CSV's rows, the resumed wall under 0.7
+   of cold), both walls and the loop rate printed.
 4. Bench phase: the throughput bench (``mcm_tpu_torch.bench``) at full
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
    turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
@@ -183,14 +197,22 @@
 5. Tools phase: the three attention tools (``mcm_tpu_torch.tools``
    ``bsd_probe``, ``qkv_probe``, ``attn_shootout``) in-process at their
    own shapes (B = 512) with a shorter chain: no row may fail, and every
-   kernel they reach must be launched.
+   kernel they reach must be launched.  Then the measurement tools:
+   ``mfu_breakdown`` (one window; every variant must give a rate, and
+   ``full`` must launch 12 bsd and 1 MCM a batch), ``bsd_block_probe``
+   (every row, bsd launched), ``check_pallas_mh`` (parity, one
+   ``mh_attention`` launch a case), ``int8_probe``, ``h2d_probe`` (one
+   round) and ``h2d_probe2`` (two rounds).
 6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line (its
    ``launches``: bsd and MCM summed over the slice phase's CLI runs (the
    decode-route runs included), training, serving (both replicas) and soak
    runs, every rank of the dp phase and the CLIP-Linear run on the
-   two-rank checkpoint, the knob
-   kernels over their bench runs, the tools' kernels over their tool's
-   run), the card line again and, last,
+   two-rank checkpoint, the knob kernels over their bench runs, the tools'
+   kernels over their tool's run; apart from these, each entry's
+   ``tool_launches`` counts the launches of the parity phase's direct
+   tower calls and of the measurement tools, which are not the port's
+   entry points and whose ablated blocks compute wrong features on
+   purpose), the card line again and, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without a card.  Imports nothing of JAX
@@ -2308,6 +2330,95 @@ def train_runs(work: str, data: str, ckpt: str) -> dict:
     return path
 
 
+# -- 3e. parity phase: the port against HF's goldens (after the slice phase) ---
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "goldens")
+
+
+def parity_phase(work: str) -> dict:
+    """The card counterpart of ``tests/test_golden_parity.py`` through the
+    port's ``parity_check.hold_golden``: ViT-B/16 on the weights the slice
+    phase converted (the seed-0 snapshot the B/16 golden was recorded
+    from) and ViT-L/14 synthesized at its golden's seed, each in parity
+    (every recorded hidden of both towers and the features under 5e-4
+    relative, MCM within 1e-5 of HF's) and then in fast (the features
+    and MCM under ``check``'s 3e-2).  Returns the bsd launches of the fast
+    runs (direct tower calls: counted apart from the path's)."""
+    from mcm_tpu_torch.config import Precision
+    from mcm_tpu_torch.models.convert import (convert_hf_clip,
+                                              resolve_clip_params)
+    from mcm_tpu_torch.models.hf_synth import (synth_hf_clip_state_dict,
+                                               synth_scale_config)
+    from mcm_tpu_torch.ops import attention
+    from mcm_tpu_torch.tools.parity_check import hold_golden
+
+    card = card_line()
+    bsd = 0
+    for name in ("b16", "l14"):
+        gold = os.path.join(GOLDEN_DIR, f"clip_synth_{name}.npz")
+        t = time.perf_counter()
+        if name == "b16":
+            params = resolve_clip_params("ViT-B/16", os.path.join(work, "ckpt"))
+            source = "the slice phase's conversion (ViT-B-16.npz)"
+        else:
+            cfg = synth_scale_config(name)
+            seed = int(np.load(gold)["seed"])
+            params = convert_hf_clip(synth_hf_clip_state_dict(cfg, seed), cfg)
+            source = f"synthesized at seed {seed} and converted"
+        check(params is not None, f"parity {name}: no weights")
+        prep_s = time.perf_counter() - t
+        for prec_name, prec in (("parity", Precision.parity()),
+                                ("fast", Precision.fast())):
+            attention.bsd_attention.launches = 0
+            t = time.perf_counter()
+            row = hold_golden(gold, params=params, device="cuda",
+                              precision=prec, hidden=prec_name == "parity")
+            torch.cuda.synchronize()
+            row.update(wall_s=time.perf_counter() - t, weights=source,
+                       weights_s=prep_s,
+                       bsd_launches=attention.bsd_attention.launches)
+            bsd += row["bsd_launches"]
+            layers = ", ".join(
+                f"{tower} " + " ".join(f"{k}:{v:.2e}" for k, v in
+                                       row[f"{tower}_hidden_max_rel"].items())
+                for tower in ("vision", "text")
+                if f"{tower}_hidden_max_rel" in row)
+            print(f"parity {name} {prec_name} vs HF golden: image "
+                  f"{row['image_features_max_rel']:.2e}, text "
+                  f"{row['text_features_max_rel']:.2e}, MCM |d| "
+                  f"{row['mcm_max_abs']:.2e} (tol {row['tol']}); {layers}; "
+                  f"{row['wall_s']:.2f}s ({card})", flush=True)
+            check(row["ok"], f"parity {name} {prec_name}: the port is off "
+                  f"HF's golden: {row}")
+            emit({"phase": "parity", "golden": os.path.basename(gold), **row})
+        del params
+    return {"bsd_attention": bsd}
+
+
+# -- 3f. scale phase: the eval CLI at 18,192 images, then resumed ---------------
+
+#: the tool's own default size: on the card a run's fixed start-up (imports,
+#: the report) is most of a smaller run's wall, which the resume gate
+#: compares; the size costs ~20 s more than 2048 + 4 × 512 (the tree)
+SCALE_ID_IMAGES, SCALE_OOD_IMAGES = 10000, 2048
+
+
+def scale_phase(work: str) -> None:
+    """``tools.scale_soak`` at SCALE_ID_IMAGES ID + 4 × SCALE_OOD_IMAGES OOD
+    images: the CLI (a subprocess) cold, then ``--resume`` under the tool's
+    gate (resumed wall under 0.7 of cold); both walls and the loop rate."""
+    from mcm_tpu_torch.tools import scale_soak
+    row = scale_soak.main(["--id-images", str(SCALE_ID_IMAGES),
+                           "--ood-images", str(SCALE_OOD_IMAGES),
+                           "--root", os.path.join(work, "soak"),
+                           "--device", "cuda"])
+    print(f"scale_soak {row['images']} images: cold {row['cold']['wall_s']:.1f}"
+          f" s (loop {row['cold']['loop_img_per_s']} img/s), resume "
+          f"{row['resume']['wall_s']:.1f} s ({card_line()})", flush=True)
+    emit({"phase": "scale", **row})
+
+
 # -- 4. bench phase --------------------------------------------------------------
 
 #: the bench's B = 512 rate with default knobs on an H100 80GB HBM3 at
@@ -3223,6 +3334,84 @@ def tools_phase() -> dict:
             "bsd_attention_packed": out["qkv_probe"]["launches"]["bsd_fused"]}
 
 
+def measurement_tools() -> dict:
+    """The ports of the measurement tools on the card, shortened (one
+    ``mfu_breakdown`` window, one and two H2D rounds): ``mfu_breakdown``
+    (every variant timed, ``full`` 12 bsd and 1 MCM launch a batch),
+    ``bsd_block_probe`` (every row, bsd launched), ``check_pallas_mh``
+    (parity, ``mh_attention`` launched for each case), ``int8_probe`` and
+    both H2D probes.  Returns each kernel's launches over these runs."""
+    from mcm_tpu_torch.config import CLIP_CONFIGS
+    from mcm_tpu_torch.ops import attention, mcm_score
+    from mcm_tpu_torch.tools import (_timing, bsd_block_probe,
+                                     check_pallas_mh, h2d_probe, h2d_probe2,
+                                     int8_probe, mfu_breakdown)
+    card = card_line()
+    counters = {"bsd_attention": attention.bsd_attention,
+                "mcm_score": mcm_score.mcm_score,
+                "mh_attention": attention.mh_attention}
+    total = dict.fromkeys(counters, 0)
+
+    def run(fn, *args):
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        row = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = {n: c.launches for n, c in counters.items()}
+        for n, v in got.items():
+            total[n] += v
+        return row, got, wall
+
+    layers = CLIP_CONFIGS[mfu_breakdown.CKPT]().vision.layers
+    mfu_breakdown.WINDOWS = 1
+    row, got, wall = run(mfu_breakdown.main, ["--device", "cuda"])
+    check(not row["failed"] and list(row["variants"]) == [
+        m for m, _ in mfu_breakdown.VARIANTS],
+        f"mfu_breakdown: variants failed: {row['failed']}")
+    full = row["variants"]["full"]
+    check(full["launches"] == {"bsd_attention": layers * full["batches"],
+                               "mcm_score": full["batches"]},
+          f"mfu_breakdown full: launches {full['launches']} over "
+          f"{full['batches']} batches, want {layers} bsd and 1 MCM a batch")
+    print(f"mfu_breakdown B = {row['batch']}: full "
+          f"{row['full_ms_per_batch']:.2f} ms a batch; deltas "
+          + ", ".join(f"{m} {v:.2f}" for m, v in row["deltas_ms"].items())
+          + f" ms; {wall:.1f}s ({card})", flush=True)
+    emit({"phase": "tools_mfu_breakdown", "launches": got, **row})
+
+    _timing.CHAIN, _timing.OUTER = 10, 2
+    rows, got, wall = run(bsd_block_probe.main, "cuda")
+    check(not _timing.failed(rows) and got["bsd_attention"] > 0,
+          f"bsd_block_probe: failed rows {_timing.failed(rows)}, launches "
+          f"{got}")
+    emit({"phase": "tools_bsd_block_probe", "launches": got,
+          "chain": _timing.CHAIN, "outer": _timing.OUTER,
+          "ms": {r: v * 1e3 for r, v in rows.items()}, "wall_s": wall})
+
+    row, got, wall = run(check_pallas_mh.main, ["--device", "cuda"])
+    check(row["ok"] and got["mh_attention"] == len(check_pallas_mh.CASES),
+          f"check_pallas_mh: {row}, launches {got}")
+    emit({"phase": "tools_check_pallas_mh", "launches": got, **row})
+
+    row, got, wall = run(int8_probe.main, ["--device", "cuda"])
+    print("int8_probe: time / bf16's (net of each consumer) " + ", ".join(
+        f"{k} {row[f'{k}_over_bf16_time']:.3f} "
+        f"({row[f'{k}_over_bf16_time_net']:.3f})"
+        for k in ("int8", "int8_tn", "int8_dq"))
+        + f"; consumers {row['consumer_ms']} ms ({card})", flush=True)
+    emit({"phase": "tools_int8_probe", "wall_s": wall, **row})
+
+    h2d_probe.ROUNDS, h2d_probe2.ROUNDS = 1, 2
+    for tool in (h2d_probe, h2d_probe2):
+        row, got, wall = run(tool.main, ["--device", "cuda"])
+        emit({"phase": f"tools_{row['tool']}", "wall_s": wall, **row})
+    print(f"h2d_probe2: {row['verdict']} (median ratio "
+          f"{row['ratio_median']:.3f}) ({card})", flush=True)
+    return total
+
+
 # -- 6. summary ------------------------------------------------------------------
 
 KERNELS = {
@@ -3276,6 +3465,12 @@ def main(argv=None) -> int:
         launches = slice_phase(work)
         walls["slice"] = time.perf_counter() - t
         t = time.perf_counter()
+        tool_launches = parity_phase(work)
+        walls["parity"] = time.perf_counter() - t
+        t = time.perf_counter()
+        scale_phase(work)
+        walls["scale"] = time.perf_counter() - t
+        t = time.perf_counter()
         for k, v in dp_phase(work).items():
             launches[k] += v
         walls["dp"] = time.perf_counter() - t
@@ -3292,6 +3487,10 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     launches.update(tools_phase())
     walls["tools"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for k, v in measurement_tools().items():
+        tool_launches[k] = tool_launches.get(k, 0) + v
+    walls["measurement_tools"] = time.perf_counter() - t
     emit({"phase_wall_s": walls})
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -3299,6 +3498,7 @@ def main(argv=None) -> int:
         check(launches[name] > 0, f"{name} was not launched on its path")
         entry = {"name": name, "route": route, "source": source,
                  "replaces": replaces, "launches": launches[name],
+                 "tool_launches": tool_launches.get(name, 0),
                  "max_abs_err": row["max_abs_err"],
                  "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

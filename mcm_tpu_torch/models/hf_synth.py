@@ -12,6 +12,13 @@ The same holds for the supervised ViT of the MSP baseline: an HF
 keys and shapes at the full config) from the same value rule, and
 :func:`write_hf_vit_snapshot`, which saves it as the snapshot directory
 the vit-Linear path converts.
+
+It also carries the numpy-only helpers of the HF parity tools
+(``mcm_tpu_torch.tools.parity_check``): the golden configs, the
+deterministic probe inputs and the ``transformers.CLIPConfig`` kwargs, all
+equal to the JAX package's.  :func:`build_hf_clip` alone needs
+``transformers``, which it imports when called: the module imports on a
+host without it.
 """
 
 from __future__ import annotations
@@ -22,7 +29,27 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from mcm_tpu_torch.config import CLIPConfig, SupervisedViTConfig
+from mcm_tpu_torch.config import (CLIPConfig, SupervisedViTConfig, TextConfig,
+                                  VisionConfig)
+
+
+def golden_config() -> CLIPConfig:
+    """The mid-size model of ``tests/goldens/clip_synth_6l384.npz``: 6 layers,
+    384 wide, 224²/16 patches (197-token sequences), a 1000-entry vocab."""
+    return CLIPConfig(
+        name="synth-6L384",
+        vision=VisionConfig(image_size=224, patch_size=16, width=384,
+                            layers=6, heads=6, projection_dim=384),
+        text=TextConfig(vocab_size=1000, context_length=77, width=384,
+                        layers=6, heads=6, projection_dim=384))
+
+
+def synth_scale_config(name: str) -> CLIPConfig:
+    """The full-size config of a synthesized golden: ``"b16"`` → ViT-B/16,
+    ``"l14"`` → ViT-L/14."""
+    from mcm_tpu_torch.config import CLIP_CONFIGS
+
+    return CLIP_CONFIGS[{"b16": "ViT-B/16", "l14": "ViT-L/14"}[name]]()
 
 
 def hf_clip_key_shapes(cfg: CLIPConfig) -> Dict[str, Tuple[int, ...]]:
@@ -154,6 +181,76 @@ def hf_to_openai_state_dict(hf_sd: Dict[str, np.ndarray],
 # ---------------------------------------------------------------------------
 # Supervised ViT (HF ViTForImageClassification)
 # ---------------------------------------------------------------------------
+
+def hf_clip_config_kwargs(cfg: CLIPConfig) -> Dict[str, object]:
+    """kwargs for ``transformers.CLIPConfig`` matching ``cfg`` exactly
+    (QuickGELU; EOT = the largest id, which HF pools at its first
+    occurrence as the port's argmax does)."""
+    return dict(
+        vision_config=dict(
+            image_size=cfg.vision.image_size,
+            patch_size=cfg.vision.patch_size,
+            hidden_size=cfg.vision.width,
+            num_hidden_layers=cfg.vision.layers,
+            num_attention_heads=cfg.vision.heads,
+            intermediate_size=cfg.vision.width * cfg.vision.mlp_ratio,
+            hidden_act="quick_gelu"),
+        text_config=dict(
+            vocab_size=cfg.text.vocab_size,
+            max_position_embeddings=cfg.text.context_length,
+            hidden_size=cfg.text.width,
+            num_hidden_layers=cfg.text.layers,
+            num_attention_heads=cfg.text.heads,
+            intermediate_size=cfg.text.width * cfg.text.mlp_ratio,
+            hidden_act="quick_gelu",
+            eos_token_id=cfg.text.vocab_size - 1),
+        projection_dim=cfg.embed_dim)
+
+
+def build_hf_clip(cfg: CLIPConfig, sd: Dict[str, np.ndarray]):
+    """A real HF ``CLIPModel`` (eval mode, CPU) holding ``sd`` strictly.
+    Needs ``transformers``, imported here."""
+    import torch
+    import transformers
+
+    model = transformers.CLIPModel(
+        transformers.CLIPConfig(**hf_clip_config_kwargs(cfg)))
+    model.load_state_dict(
+        {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
+        strict=True)
+    model.eval()
+    return model
+
+
+def probe_inputs(seed: int = 0, batch: int = 8, n_prompts: int = 16,
+                 image_size: int = 224, context: int = 77,
+                 vocab_size: int = 49408):
+    """Deterministic synthetic pixels (NCHW fp32), token ids and mask: BOS
+    first, EOT (the largest id) at each row's length and as its padding."""
+    rng = np.random.default_rng(seed)
+    pixels = rng.standard_normal((batch, 3, image_size,
+                                  image_size)).astype(np.float32)
+    ids = rng.integers(1, vocab_size - 2,
+                       size=(n_prompts, context)).astype(np.int64)
+    lengths = rng.integers(5, context, size=n_prompts)
+    mask = np.zeros_like(ids)
+    ids[:, 0] = vocab_size - 2          # BOS
+    for r, length in enumerate(lengths):
+        ids[r, length - 1] = vocab_size - 1
+        ids[r, length:] = vocab_size - 1
+        mask[r, :length] = 1
+    return pixels, ids, mask
+
+
+def golden_probe_inputs(cfg: CLIPConfig):
+    """The probe inputs of a golden at ``cfg``: 2 images and 4 prompts, or
+    1 and 2 for a model deeper than 12 layers (L/14)."""
+    big = cfg.vision.layers > 12
+    return probe_inputs(batch=1 if big else 2, n_prompts=2 if big else 4,
+                        image_size=cfg.vision.image_size,
+                        context=cfg.text.context_length,
+                        vocab_size=cfg.text.vocab_size)
+
 
 def hf_vit_key_shapes(cfg: SupervisedViTConfig) -> Dict[str, Tuple[int, ...]]:
     """Every key of ``ViTForImageClassification(cfg).state_dict()`` (no

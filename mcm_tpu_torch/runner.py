@@ -38,6 +38,7 @@ the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -230,7 +231,9 @@ def _build_vit_linear(cfg: RunConfig, mesh: Mesh, log=None,
                          precision=resolve_precision(cfg.precision),
                          noise_magnitude=cfg.noise_magnitude,
                          model_parallel=cfg.model_parallel, mesh=mesh)
-    return (params if defer_put else step.put_params(params)), None, step
+    if defer_put:
+        return (lambda: params), None, step
+    return step.put_params(params), None, step
 
 
 def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False,
@@ -243,9 +246,12 @@ def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False,
     mesh that cannot be made (an ``--n_devices`` other than the world size)
     or a batch its processes cannot split raises before any weight loads.
 
-    ``defer_put=True`` returns the HOST parameter tree instead (no device
-    upload): :func:`run_eval` uploads it with ``step.put_params`` on first
-    device use, so a fully cached ``--resume`` never touches the card."""
+    ``defer_put=True`` returns, in the model's place, a zero-argument
+    function that gives the HOST parameter tree (random CLIP weights are
+    initialized only when it is called): :func:`run_eval` calls it and
+    uploads the tree with ``step.put_params`` on first device use, so a
+    fully cached ``--resume`` never touches the card nor initializes
+    weights it will not use."""
     check_ported(cfg)
     if mesh is None:
         mesh = make_mesh(cfg.n_devices, cfg.model_parallel, device=cfg.device)
@@ -284,7 +290,8 @@ def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False,
                 f"directory, or pass --allow_random_weights for smoke runs")
         warnings.warn("RANDOM WEIGHTS in use — scores are meaningless; "
                       "this mode is for smoke/throughput tests only")
-        params = init_clip(0, clip_cfg)
+    host = (functools.partial(init_clip, 0, clip_cfg) if params is None
+            else lambda: params)
 
     tokenizer = CLIPTokenizer.resolve(cfg.ckpt_dir)
     if tokenizer is None:
@@ -298,7 +305,9 @@ def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False,
     step = EvalStep(clip_cfg, score=cfg.score if cfg.score != "maha" else "MCM",
                     T=cfg.T, precision=precision, mesh=mesh,
                     noise_magnitude=cfg.noise_magnitude)
-    return (params if defer_put else step.put_params(params)), tokenizer, step
+    if defer_put:
+        return host, tokenizer, step
+    return step.put_params(host()), tokenizer, step
 
 
 def _clip_weight_source(cfg: RunConfig) -> Optional[str]:
@@ -732,7 +741,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
     # .npz cache, and the fingerprint must record the file later runs
     # load.  The parameters stay on the host until first device use: a
     # fully cached --resume never uploads them.
-    params_host, tokenizer, step = build_model_and_step(cfg, log,
+    host_params, tokenizer, step = build_model_and_step(cfg, log,
                                                         defer_put=True)
     log.debug(f"mesh: {step.mesh.describe()}")
     _params: Dict[str, object] = {}
@@ -740,7 +749,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
     def dev_params():
         """The model on the step's device, uploaded on first use only."""
         if "dev" not in _params:
-            _params["dev"] = step.put_params(params_host)
+            _params["dev"] = step.put_params(host_params())
         return _params["dev"]
 
     if writer:

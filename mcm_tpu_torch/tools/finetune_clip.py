@@ -90,7 +90,8 @@ def _finetune(args) -> str:
     make_mesh(cfg.n_devices, cfg.model_parallel, device=cfg.device,
               entry="mcm_tpu_torch.tools.finetune_clip")
     # the host tree: training builds its own fp32 master copy on the device
-    params, tokenizer, step = build_model_and_step(cfg, defer_put=True)
+    host_params, tokenizer, step = build_model_and_step(cfg, defer_put=True)
+    params = host_params()
 
     train_ds = set_train_loader(args.in_dataset, args.root_dir,
                                 subset=args.subset, max_count=args.max_count)

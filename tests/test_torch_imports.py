@@ -1,7 +1,9 @@
 """Import guard: the port and chip_smoke.py import neither JAX nor the JAX
-package.  A subprocess blocks ``jax``/``jaxlib`` and ``mcm_tpu`` (but not
-``mcm_tpu_torch``) with a meta-path finder, then imports every module of
-the port and ``chip_smoke``."""
+package, nor ``transformers`` (the card host has none; the parity tool's
+HF modes import it when they run).  A subprocess blocks ``jax``/``jaxlib``,
+``mcm_tpu`` (but not ``mcm_tpu_torch``) and ``transformers`` with a
+meta-path finder, then imports every module of the port and
+``chip_smoke``."""
 
 import os
 import subprocess
@@ -12,7 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "mcm_tpu")
+BLOCKED = ("jax", "jaxlib", "mcm_tpu", "transformers")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -34,7 +36,8 @@ print(" ".join(names))
 
 #: modules the guard must reach by name (the walk finds every module; these
 #: are the entry points and the modules of the vit-Linear, serving,
-#: training, native-decode and data-parallel paths)
+#: training, native-decode and data-parallel paths, and the measurement
+#: tools)
 _NAMED = ("mcm_tpu_torch.models.vit", "mcm_tpu_torch.scores.msp",
           "mcm_tpu_torch.cli.eval_msp", "mcm_tpu_torch.cli.eval_ood",
           "mcm_tpu_torch.serve", "mcm_tpu_torch.serve_http",
@@ -45,7 +48,14 @@ _NAMED = ("mcm_tpu_torch.models.vit", "mcm_tpu_torch.scores.msp",
           "mcm_tpu_torch.tools.train_attn_probe",
           "mcm_tpu_torch.runtime.native", "mcm_tpu_torch.ops.preprocess",
           "mcm_tpu_torch.tools.serve_soak", "mcm_tpu_torch.tools.http_soak",
-          "mcm_tpu_torch.parallel.mesh", "mcm_tpu_torch.parallel.multihost")
+          "mcm_tpu_torch.parallel.mesh", "mcm_tpu_torch.parallel.multihost",
+          "mcm_tpu_torch.models.hf_synth", "mcm_tpu_torch.tools._synth",
+          "mcm_tpu_torch.tools.parity_check", "mcm_tpu_torch.tools.scale_soak",
+          "mcm_tpu_torch.tools.mfu_breakdown",
+          "mcm_tpu_torch.tools.bsd_block_probe",
+          "mcm_tpu_torch.tools.check_pallas_mh",
+          "mcm_tpu_torch.tools.int8_probe", "mcm_tpu_torch.tools.h2d_probe",
+          "mcm_tpu_torch.tools.h2d_probe2")
 
 
 def test_port_imports_no_jax():

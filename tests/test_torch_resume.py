@@ -286,11 +286,12 @@ def test_maha_reads_reference_pt_templates(workdir, tmp_path):
 
 
 def test_fully_cached_resume_touches_no_device(workdir, monkeypatch):
-    """A fully cached --resume uploads no parameter, runs no eval program
-    and encodes no text."""
+    """A fully cached --resume uploads no parameter, runs no eval program,
+    encodes no text and builds no random weights."""
     tmp, root = workdir
     _run(tmp, root, name="noput")   # populate every cache
 
+    from mcm_tpu_torch import runner
     from mcm_tpu_torch.parallel import eval_step
 
     def forbid(*a, **k):
@@ -299,6 +300,7 @@ def test_fully_cached_resume_touches_no_device(workdir, monkeypatch):
     for name in ("put_params", "put_batch", "put_replicated", "features",
                  "score", "maha", "encode_text"):
         monkeypatch.setattr(eval_step.EvalStep, name, forbid)
+    monkeypatch.setattr(runner, "init_clip", forbid)
     in1, out1, warns, _ = _run(tmp, root, name="noput", resume=True)
     assert not any("different configuration" in w for w in warns)
     assert np.isfinite(in1).all() and np.isfinite(out1).all()

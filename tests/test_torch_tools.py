@@ -164,3 +164,242 @@ def test_tool_main_on_the_cpu(tool, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert all(f"{name}" in out for name in rows)
     assert "FAILED" not in out
+
+
+# -- the card probes and the measurement tools ----------------------------------
+
+from mcm_tpu_torch.tools import (bsd_block_probe, check_pallas_mh,  # noqa: E402
+                                 h2d_probe, h2d_probe2, int8_probe,
+                                 mfu_breakdown, parity_check, scale_soak)
+
+#: each tool's ``main`` with ``--device cuda``
+CUDA_ARGV = {
+    "bsd_block_probe": (bsd_block_probe.main, "cuda"),
+    "check_pallas_mh": (check_pallas_mh.main, ["--device", "cuda"]),
+    "int8_probe": (int8_probe.main, ["--device", "cuda"]),
+    "h2d_probe": (h2d_probe.main, ["--device", "cuda"]),
+    "h2d_probe2": (h2d_probe2.main, ["--device", "cuda"]),
+    "mfu_breakdown": (mfu_breakdown.main, ["--device", "cuda"]),
+    "scale_soak": (scale_soak.main, ["--device", "cuda", "--root",
+                                     "/nonexistent/soak"]),
+    "parity_check": (parity_check.main, ["check", "--goldens", "g.npz",
+                                         "--device", "cuda"]),
+}
+
+
+@pytest.mark.parametrize("tool", sorted(CUDA_ARGV))
+def test_tools_raise_without_a_card(tool):
+    """``--device cuda`` (each tool's default) raises before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without a card")
+    main, argv = CUDA_ARGV[tool]
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        main(argv)
+
+
+def test_h2d_buffers_are_distinct_and_jax_s(monkeypatch):
+    """The probes' buffers at a tiny size: pairwise distinct, and equal to
+    the JAX tool's for the same seed (``tools/h2d_probe.py::make_buffers``)."""
+    from tools import h2d_probe as jh2d
+    for mod in (h2d_probe, jh2d):
+        monkeypatch.setattr(mod, "B", 3)
+        monkeypatch.setattr(mod, "S", 8)
+    bufs = h2d_probe.make_buffers(5)
+    assert all(b.shape == (3, 8, 8, 3) and b.dtype == torch.uint8
+               for b in bufs)
+    assert len({b.numpy().tobytes() for b in bufs}) == 5
+    for got, want in zip(bufs, jh2d.make_buffers(5)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert h2d_probe.buffer_bytes() == 3 * 8 * 8 * 3
+
+
+def test_h2d_concurrent_copies_every_buffer_once(monkeypatch):
+    """Each way takes its round-robin share; every buffer is copied once."""
+    class Seen:
+        def __init__(self):
+            self.got = []
+
+        def transfer(self, b):
+            self.got.append(int(b[0]))
+    lanes = [Seen() for _ in range(3)]
+    bufs = [torch.full((2,), i, dtype=torch.uint8) for i in range(7)]
+    h2d_probe.run_concurrent(lanes, bufs)
+    assert [lane.got for lane in lanes] == [[0, 3, 6], [1, 4], [2, 5]]
+
+
+@pytest.mark.parametrize("tool", [h2d_probe, h2d_probe2])
+def test_h2d_lanes_are_made_once_and_warmed(tool, monkeypatch):
+    """Every lane (a stream and a device buffer) is made before the timed
+    rounds and warmed by one transfer; the rounds make none, so no timed
+    copy pays a fresh device allocation.  A transfer copies into the
+    lane's own buffer and returns the buffer's sum."""
+    monkeypatch.setattr(h2d_probe, "B", 2)
+    monkeypatch.setattr(h2d_probe, "S", 8)
+    monkeypatch.setattr(tool, "ROUNDS", 3)
+    made, calls = [], []
+    real_init, real_transfer = h2d_probe.Lane.__init__, h2d_probe.Lane.transfer
+
+    def init(self, like, device):
+        real_init(self, like, device)
+        made.append(self)
+
+    def transfer(self, buf):
+        calls.append((self, self.dst.data_ptr()))
+        got = real_transfer(self, buf)
+        assert torch.equal(self.dst, buf) and got == int(buf.sum())
+        return got
+    monkeypatch.setattr(h2d_probe.Lane, "__init__", init)
+    monkeypatch.setattr(h2d_probe.Lane, "transfer", transfer)
+    tool.main(["--device", "cpu"])
+    ways = max(h2d_probe.WAYS) if tool is h2d_probe else h2d_probe2.WAYS
+    assert len(made) == ways
+    assert [lane for lane, _ in calls[:ways]] == made     # the warm-up
+    assert {lane for lane, _ in calls} == set(made)
+    assert all(ptr == lane.dst.data_ptr() for lane, ptr in calls)
+
+
+def test_h2d_probe2_alternates_the_order():
+    """S,C in even rounds and C,S in odd ones; the ratio is serial over
+    concurrent, and the verdict reads the median."""
+    calls = []
+
+    def serial():
+        calls.append("S")
+        return 2.0
+
+    def conc():
+        calls.append("C")
+        return 1.0
+    rounds = h2d_probe2.run_rounds(serial, conc, 4)
+    assert calls == ["S", "C", "C", "S", "S", "C", "C", "S"]
+    assert [r["order"] for r in rounds] == ["S,C", "C,S"] * 2
+    assert all(r["ratio"] == 2.0 for r in rounds)
+    assert h2d_probe2.verdict([2.0, 2.0]) == "CONCURRENCY WINS"
+    assert h2d_probe2.verdict([1.1, 1.2, 0.9]).startswith("no robust win")
+
+
+@pytest.mark.parametrize("tool", [h2d_probe, h2d_probe2])
+def test_h2d_probes_on_the_cpu(tool, monkeypatch):
+    monkeypatch.setattr(h2d_probe, "B", 2)
+    monkeypatch.setattr(h2d_probe, "S", 8)
+    monkeypatch.setattr(tool, "ROUNDS", 2)
+    row = tool.main(["--device", "cpu"])
+    assert len(row["rounds"]) == 2
+    if tool is h2d_probe:
+        assert set(row["rounds"][0]) == {"serial", "concurrent2",
+                                         "concurrent4"}
+    else:
+        assert row["verdict"] and row["ratio_median"] > 0
+
+
+@pytest.mark.parametrize("variant", int8_probe.VARIANTS)
+def test_int8_chain_is_honest(variant, rng, monkeypatch):
+    """The JAX tool's two properties: product i takes the weight rolled i
+    columns (a loop-carried dependence; for ``int8_tn`` in its column-major
+    layout), and the accumulator is the sum of every product's WHOLE output
+    (here n times the full x @ w sum, which a narrowed product would not
+    give)."""
+    x8 = rng.integers(-127, 127, (16 + 8, 32), dtype=np.int8)
+    w8 = rng.integers(-127, 127, (32, 24), dtype=np.int8)
+    xs = x8.astype(np.int64)
+    if variant == "int8+dq":
+        xs[0, 0] = 127            # max |x| = 127: the quantization is exact
+    seen = []
+    if variant == "bf16":
+        x = torch.from_numpy(xs.astype(np.float32)).bfloat16()
+        w = torch.from_numpy(w8.astype(np.float32)).bfloat16()
+        real = int8_probe.matmul_f32
+
+        def product(a, b):
+            seen.append(b.float().numpy().astype(np.int64))
+            return real(a, b)
+        monkeypatch.setattr(int8_probe, "matmul_f32", product)
+    else:
+        x = (torch.from_numpy(xs.astype(np.float32)).bfloat16()
+             if variant == "int8+dq" else torch.from_numpy(xs.astype(np.int8)))
+        w = torch.from_numpy(w8)
+        real = torch._int_mm
+
+        def product(a, b):
+            seen.append(b.numpy().astype(np.int64))
+            return real(a, b)
+        monkeypatch.setattr(torch, "_int_mm", product)
+    got = float(int8_probe.chain(variant, x, w, n=3))
+    assert len(seen) == 3
+    for i, wi in enumerate(seen):
+        np.testing.assert_array_equal(wi, np.roll(w8.astype(np.int64), i,
+                                                  axis=1))
+    full = int((xs @ w8.astype(np.int64)).sum())
+    assert got == pytest.approx(3 * full, rel=1e-6)
+    assert full != int((xs[:1] @ w8[:, :1].astype(np.int64)).sum())
+
+
+def test_int8_probe_on_the_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(int8_probe, "M", 32)
+    monkeypatch.setattr(int8_probe, "K", 16)
+    monkeypatch.setattr(int8_probe, "N", 24)
+    monkeypatch.setattr(int8_probe, "OUTER", 1)
+    row = int8_probe.main(["--device", "cpu"])
+    assert set(row["ms"]) == set(int8_probe.VARIANTS)
+    assert set(row["consumer_ms"]) == {"f32_sum", "int32_cast_sum"}
+    assert row["int8_over_bf16_time"] > 0
+    for key in ("int8", "int8_tn", "int8_dq"):
+        ms = row["ms"]["int8+dq" if key == "int8_dq" else key]
+        assert row[f"{key}_over_bf16_time_net"] == pytest.approx(
+            (ms - row["consumer_ms"]["int32_cast_sum"])
+            / (row["ms"]["bf16"] - row["consumer_ms"]["f32_sum"]))
+    assert "int8+dq" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_int8_consumer_chain_sums_the_whole_product(dtype, rng):
+    """The consumer rows sum the WHOLE product each iteration, an int32
+    one cast to fp32 first, as the variants consume theirs."""
+    p = torch.from_numpy(rng.integers(-1000, 1000, (24, 40))).to(dtype)
+    got = float(int8_probe.sum_chain(p, n=3))
+    assert got == pytest.approx(3 * float(p.double().sum()), rel=1e-6)
+
+
+def test_check_pallas_mh_cases_on_the_cpu(capsys):
+    """JAX's three cases through the kernel's plain version, no launch."""
+    before = attention.mh_attention.launches
+    row = check_pallas_mh.main(["--device", "cpu"])
+    assert attention.mh_attention.launches == before
+    assert row["ok"] and [(c["H"], c["S"], c["block_h"])
+                          for c in row["cases"]] == [(12, 197, 6),
+                                                     (16, 197, 6),
+                                                     (12, 50, 12)]
+    assert all(c["max_abs_err"] < 3e-2 for c in row["cases"])
+    assert "mh_attention == math path: OK" in capsys.readouterr().out
+
+
+def test_check_pallas_mh_reference_is_jaxs(rng):
+    """The port's reference (the math path in fast precision) against
+    JAX's ``_xla_attention`` on the same bf16 heads: one bf16 ulp."""
+    from mcm_tpu.config import Precision as JPrecision
+    from mcm_tpu.ops.attention import _xla_attention
+
+    from mcm_tpu_torch.config import Precision
+    q, k, v = _arrays(rng, (2, 4, 50, 64))
+    want = np.asarray(_xla_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), None,
+        JPrecision.fast()).astype(jnp.float32))
+    got = attention._math_attention(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), None,
+        Precision.fast()).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=_bf16_ulp(float(np.abs(want).max())))
+
+
+def test_bsd_block_probe_on_the_cpu(monkeypatch):
+    """Both rows at each shape, none FAILED, no launch on the CPU."""
+    monkeypatch.setattr(bsd_block_probe, "SHAPES",
+                        {"B/32": (2, 17, 128, 2), "L/14": (2, 9, 256, 4)})
+    monkeypatch.setattr(_timing, "CHAIN", 2)
+    monkeypatch.setattr(_timing, "OUTER", 1)
+    before = attention.bsd_attention.launches
+    rows = bsd_block_probe.main("cpu")
+    assert attention.bsd_attention.launches == before
+    assert list(rows) == ["B/32 xla", "B/32 bsd", "L/14 xla", "L/14 bsd"]
+    assert not _timing.failed(rows)
+    assert list(bsd_block_probe.SHAPES) == ["B/32", "L/14"]
