@@ -146,7 +146,23 @@
    collective ms (gather and gradient all-reduce with their host copies)
    and peak memory; then ``--model CLIP-Linear`` on that checkpoint (12 bsd
    and 1 MCM launch a batch).
-   tp phase, after the dp train phase on its weights, trees and
+   local dp phase, after the dp train phase: data parallelism in one
+   process over two replicas of card 0 (the split, the join and the
+   gradient sum on the card; not a rate across cards), no launcher: (a)
+   ``eval_ood --n_devices 2 --device cuda:0`` on CLIP, MCM, ``-b 128``
+   (each replica a stripe of 64 rows): 24 bsd and 2 MCM launches per
+   image batch, twice the one-device run's, its scores within rtol 5e-3 /
+   atol 5e-4 of the slice phase's run (the largest difference printed, and
+   whether they are bit-equal), the CSV equal, the log naming the grid; (b)
+   ``--model vit-Linear`` on one device, then on two replicas, held the
+   same way (12 bsd per image batch and replica); (c)
+   ``tools.finetune_clip --n_devices 2 --device cuda:0`` in this process
+   (the launch's gloo collectives made to raise): its epoch loss within
+   1e-3 relative of the one-process fine-tune's and of the dp train
+   phase's two-rank launch, the checkpoint written once, ms a step,
+   ``comm_s`` a step and peak memory beside the gloo launch's; the CLI's
+   wall and img/s at one and two replicas.
+   tp phase, after the local dp phase on its weights, trees and
    fine-tune: tensor parallelism on two shards of card 0 (the split, the
    fp32 sum of the partials and the join; not a rate across cards), each
    TP run launching no kernel (JAX routes a TP mesh to the math paths):
@@ -207,12 +223,12 @@
    ``launches``: bsd and MCM summed over the slice phase's CLI runs (the
    decode-route runs included), training, serving (both replicas) and soak
    runs, every rank of the dp phase and the CLIP-Linear run on the
-   two-rank checkpoint, the knob kernels over their bench runs, the tools'
-   kernels over their tool's run; apart from these, each entry's
-   ``tool_launches`` counts the launches of the parity phase's direct
-   tower calls and of the measurement tools, which are not the port's
-   entry points and whose ablated blocks compute wrong features on
-   purpose), the card line again and, last,
+   two-rank checkpoint, the local dp phase's CLI runs, the knob kernels
+   over their bench runs, the tools' kernels over their tool's run; apart
+   from these, each entry's ``tool_launches`` counts the launches of the
+   parity phase's direct tower calls and of the measurement tools, which
+   are not the port's entry points and whose ablated blocks compute wrong
+   features on purpose), the card line again and, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero on any failure, and without a card.  Imports nothing of JAX
@@ -2066,6 +2082,9 @@ STEP_GRAD_REL_TOL = 0.25
 DP_TRAIN_LOSS_REL_TOL = 1e-3
 #: the single-process fine-tune's epoch, which the two-rank one is held to
 FINETUNE_ONE_PROCESS: dict = {}
+#: the two-rank gloo fine-tune's epoch and steps, beside which the local
+#: phase's two-replica fine-tune is printed
+DP_TRAIN_LAUNCH: dict = {}
 
 
 def _quiet_run(work: str, argv, cli_main) -> tuple:
@@ -2522,12 +2541,12 @@ class _TimedStep:
         return out
 
 
-def train_rank(report: str, argv) -> int:
-    """One rank of a fine-tune launch: ``tools.finetune_clip``'s ``main``
-    on ``argv`` (what ``-m mcm_tpu_torch.tools.finetune_clip`` runs), with
-    every launch count set to 0 just before it and read just after, each
-    step's ms and collective ms, the checkpoint files this rank wrote, its
-    peak memory and the epoch line (rank 0's)."""
+def timed_finetune(argv) -> dict:
+    """``tools.finetune_clip``'s ``main`` on ``argv`` (what ``-m
+    mcm_tpu_torch.tools.finetune_clip`` runs), with every launch count set
+    to 0 just before it and read just after: each step's ms and collective
+    ms, the checkpoint files written, the peak memory, the wall and the
+    epoch line (rank 0's under a launch)."""
     import contextlib
     import io
 
@@ -2555,6 +2574,7 @@ def train_rank(report: str, argv) -> int:
     loop.save_params = counting("params", save_params)
     loop.save_train_state = counting("train_state", save_state)
     buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
@@ -2565,21 +2585,26 @@ def train_rank(report: str, argv) -> int:
          loop.save_train_state) = make, save_params, save_state
         print(buf.getvalue(), end="", flush=True)
     wall = time.perf_counter() - t
-    rank = int(os.environ["RANK"])
     m = re.search(r"epoch 1/1: loss (\S+)  \((\d+) steps, ([0-9.]+)s; "
                   r"collectives ([0-9.]+)s\)", buf.getvalue())
+    return {"launches": {n: fn.launches for n, fn in counters.items()},
+            "cli_wall_s": wall, "writes": writes,
+            "step_ms": steps[0].ms, "collective_ms": steps[0].comm_ms,
+            "epoch": None if m is None else {
+                "loss": float(m.group(1)), "steps": int(m.group(2)),
+                "s": float(m.group(3)), "collectives_s": float(m.group(4))},
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def train_rank(report: str, argv) -> int:
+    """One rank of a fine-tune launch: :func:`timed_finetune` on ``argv``,
+    its report written to ``<report>.rank<r>.json``."""
+    out = timed_finetune(argv)
+    rank = int(os.environ["RANK"])
     with open(f"{report}.rank{rank}.json", "w") as f:
         json.dump({"rank": rank, "world": int(os.environ["WORLD_SIZE"]),
-                   "device": f"cuda:{torch.cuda.current_device()}",
-                   "launches": {n: fn.launches for n, fn in counters.items()},
-                   "cli_wall_s": wall, "writes": writes,
-                   "step_ms": steps[0].ms, "collective_ms": steps[0].comm_ms,
-                   "epoch": None if m is None else {
-                       "loss": float(m.group(1)), "steps": int(m.group(2)),
-                       "s": float(m.group(3)),
-                       "collectives_s": float(m.group(4))},
-                   "max_memory_allocated_bytes":
-                       torch.cuda.max_memory_allocated()}, f)
+                   "device": f"cuda:{torch.cuda.current_device()}", **out},
+                  f)
     return 0
 
 
@@ -2652,6 +2677,7 @@ def dp_train_phase(work: str) -> dict:
               f"{comm:.1f} ms ({100 * comm / ms:.1f} %), "
               f"max_memory_allocated_bytes {r['max_memory_allocated_bytes']}"
               f" ({card})", flush=True)
+    DP_TRAIN_LAUNCH.update(epoch=r0["epoch"], per_rank=per_rank)
     print(f"fine-tune on two ranks: epoch loss {r0['epoch']['loss']} vs one "
           f"process {one['epoch_loss']}, relative gap {gap} (bound "
           f"{DP_TRAIN_LOSS_REL_TOL}); epoch {r0['epoch']['s']} s vs "
@@ -2799,6 +2825,159 @@ def dp_phase(work: str) -> dict:
                        "scores_vs_single": _held(
                            _score_files(log_dir, names),
                            _score_files(single_maha, names), False, name)}
+    emit(out)
+    return total
+
+
+# -- 3d. local dp phase (after the dp train phase, on its weights and trees) --
+
+def _local_cli(work: str, model: str, per_batch: dict,
+               n_batches: int) -> dict:
+    """The eval CLI on ``model`` (MCM, ``-b 128``, the slice phase's tree
+    and weights) on one device, then at ``--n_devices 2 --device cuda:0``
+    (two replicas of card 0 in this process, each batch split 64 + 64):
+    each run's launches ``per_batch`` a batch and replica, the two-replica
+    scores within DP_RTOL / DP_ATOL of one device's (the largest difference
+    printed, and whether they are bit-equal), the CSVs equal, the log
+    naming the grid; both runs' walls and rates."""
+    what = f"the CLI on {model}"
+    n_images = N_ID + N_OOD * len(OOD_SETS)
+    names = ["ID_ImageNet", *OOD_SETS]
+    runs = {}
+    for replicas in (1, 2):
+        name = f"local_dp_{model}_{replicas}"
+        run = cli_run(work, _cli_argv(
+            os.path.join(work, "datasets"), os.path.join(work, "ckpt"), name,
+            "--in_dataset", "ImageNet", "-b", str(BATCH), "--model", model,
+            "--score", "MCM", "--n_devices", str(replicas), "--device",
+            "cuda:0"))
+        _check_only(run["launches"], {k: replicas * v * n_batches
+                                      for k, v in per_batch.items()},
+                    f"{what} on {replicas} replica(s) of card 0, "
+                    f"{n_batches} image batches (each replica a stripe of "
+                    f"every batch)")
+        log_dir = os.path.join(work, "results", "ImageNet", "MCM",
+                               f"{model}_ViT-B/16_T_1_ID_{name}")
+        log = _read_log(log_dir)
+        grid = " | ".join(["cuda:0"] * replicas)
+        check(f"mesh: data {replicas} × model 1 on {grid}" in log,
+              f"{what}: the log does not name {replicas} replica(s) of "
+              f"cuda:0")
+        with open(os.path.join(log_dir, f"{name}.csv")) as f:
+            csv = f.read()
+        runs[replicas] = {
+            "launches": run["launches"], "cli_wall_s": run["cli_wall_s"],
+            "cli_images_per_s": n_images / run["cli_wall_s"],
+            "loop_images_per_s": _loop_rate(log),
+            "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+            "scores": _score_files(log_dir, names), "csv": csv}
+    one, two = runs[1], runs[2]
+    two["scores_vs_one_device"] = _held(two.pop("scores"), one.pop("scores"),
+                                        False, f"{what} on two replicas")
+    check(two.pop("csv") == one.pop("csv"),
+          f"{what} on two replicas: the CSV differs from one device's")
+    two["csv_equal"] = True
+    return {"one_device": one, "two_replicas": two}
+
+
+def local_dp_phase(work: str) -> dict:
+    """Data parallelism in one process over two replicas of card 0 (the
+    split, the join and, in training, the gradient sum on the card; not a
+    rate across cards), on the slice phase's weights and trees: (a) the
+    eval CLI on CLIP and (b) on vit-Linear, each on one device then on two
+    replicas (:func:`_local_cli`); (c) ``tools.finetune_clip --n_devices 2
+    --device cuda:0`` against the one-process fine-tune and the dp train
+    phase's two-rank gloo launch, the loss within DP_TRAIN_LOSS_REL_TOL of
+    both, no collective of a launch, the checkpoint written once.  Returns
+    the eval runs' launches."""
+    from mcm_tpu_torch.parallel import multihost
+    data = os.path.join(work, "datasets")
+    ckpt = os.path.join(work, "ckpt")
+    card = card_line()
+    n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
+    out = {"phase": "local_dp", "card": card, "device": "cuda:0",
+           "replicas": 2, "batch": BATCH}
+    total = {"bsd_attention": 0, "mcm_score": 0}
+    for model, per_batch in (("CLIP", {"bsd_attention": 12, "mcm_score": 1}),
+                             ("vit-Linear", {"bsd_attention": 12})):
+        row = out[model] = _local_cli(work, model, per_batch, n_batches)
+        one, two = row["one_device"], row["two_replicas"]
+        for run in (one, two):
+            for k in total:
+                total[k] += run["launches"][k]
+        held = two["scores_vs_one_device"].values()
+        print(f"local dp, the CLI on {model} over two replicas of cuda:0: "
+              f"largest score difference to one device "
+              f"{max(v['max_abs_delta'] for v in held)} (bit-equal: "
+              f"{all(v['bit_equal'] for v in held)}), CSV equal; CLI wall "
+              f"{two['cli_wall_s']:.2f} s, {two['cli_images_per_s']:.1f} "
+              f"img/s, loop {two['loop_images_per_s']} img/s, "
+              f"max_memory_allocated_bytes "
+              f"{two['max_memory_allocated_bytes']}; one device "
+              f"{one['cli_wall_s']:.2f} s, {one['cli_images_per_s']:.1f} "
+              f"img/s, loop {one['loop_images_per_s']} img/s, "
+              f"max_memory_allocated_bytes "
+              f"{one['max_memory_allocated_bytes']} ({card})", flush=True)
+
+    # (c) the fine-tune on two replicas, in this process
+    def no_launch_collective(*_a, **_k):
+        raise AssertionError("a one-process fine-tune took a collective of "
+                             "a launch")
+
+    saved = multihost.gather_rows, multihost.all_reduce_sum_
+    multihost.gather_rows = multihost.all_reduce_sum_ = no_launch_collective
+    steps = MAHA_TRAIN_PER_CLASS * 10 // TRAIN_BATCH
+    ft_out = os.path.join(work, "finetuned_local_ImageNet10.npz")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        ft = timed_finetune([
+            "--in_dataset", "ImageNet10", "--root-dir", data, "--CLIP_ckpt",
+            "ViT-B/16", "-b", str(TRAIN_BATCH), "--epochs", "1",
+            "--ckpt_dir", ckpt, "--allow_random_weights", "--num_workers",
+            "8", "--out", ft_out, "--device", "cuda:0", "--n_devices", "2"])
+    finally:
+        os.chdir(cwd)
+        multihost.gather_rows, multihost.all_reduce_sum_ = saved
+    _check_only(ft["launches"], {}, "the two-replica fine-tune (math-path "
+                                    "attention)")
+    check(ft["epoch"] is not None and ft["epoch"]["steps"] == steps
+          and len(ft["step_ms"]) == steps,
+          f"the two-replica fine-tune's epoch line {ft['epoch']}, "
+          f"{len(ft['step_ms'])} steps: want {steps}")
+    check(ft["writes"] == {"params": 1, "train_state": 1}
+          and os.path.exists(ft_out + ".train_state.npz"),
+          f"the two-replica fine-tune's writes {ft['writes']}")
+    loss = ft["epoch"]["loss"]
+    gaps = {}
+    for what, ref in (("one process", FINETUNE_ONE_PROCESS["epoch_loss"]),
+                      ("two gloo ranks", DP_TRAIN_LAUNCH["epoch"]["loss"])):
+        gaps[what] = abs(loss - ref) / abs(ref)
+        check(gaps[what] <= DP_TRAIN_LOSS_REL_TOL,
+              f"two-replica epoch loss {loss} vs {what} {ref}: relative gap "
+              f"{gaps[what]} > {DP_TRAIN_LOSS_REL_TOL}")
+    ms = float(np.median(ft["step_ms"][1:]))
+    comm = float(np.median(ft["collective_ms"][1:]))
+    gloo = DP_TRAIN_LAUNCH["per_rank"][0]
+    out["finetune"] = {
+        "steps": steps, "batch": TRAIN_BATCH, "epoch": ft["epoch"],
+        "step_ms_median": ms, "comm_ms_median": comm,
+        "comm_share": comm / ms,
+        "max_memory_allocated_bytes": ft["max_memory_allocated_bytes"],
+        "cli_wall_s": ft["cli_wall_s"], "loss_rel_gap": gaps,
+        "loss_rel_tol": DP_TRAIN_LOSS_REL_TOL,
+        "gloo_rank0": gloo, "one_process": FINETUNE_ONE_PROCESS}
+    print(f"local dp fine-tune on two replicas of cuda:0 in one process: "
+          f"epoch loss {loss} (one process "
+          f"{FINETUNE_ONE_PROCESS['epoch_loss']}, two gloo ranks "
+          f"{DP_TRAIN_LAUNCH['epoch']['loss']}; relative gaps "
+          f"{gaps['one process']}, {gaps['two gloo ranks']}); {ms:.1f} ms a "
+          f"step, comm {comm:.3f} ms ({100 * comm / ms:.2f} %), "
+          f"max_memory_allocated_bytes {ft['max_memory_allocated_bytes']}; "
+          f"two gloo ranks: {gloo['step_ms_median']:.1f} ms a step, "
+          f"collectives {gloo['collective_ms_median']:.1f} ms, "
+          f"max_memory_allocated_bytes {gloo['max_memory_allocated_bytes']} "
+          f"a rank ({card})", flush=True)
     emit(out)
     return total
 
@@ -3478,6 +3657,10 @@ def main(argv=None) -> int:
         for k, v in dp_train_phase(work).items():
             launches[k] += v
         walls["dp_train"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for k, v in local_dp_phase(work).items():
+            launches[k] += v
+        walls["local_dp"] = time.perf_counter() - t
         t = time.perf_counter()
         tp_phase(work)
     walls["tp"] = time.perf_counter() - t

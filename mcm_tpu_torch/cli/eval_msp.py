@@ -11,10 +11,12 @@ CSV as the JAX package's ``mcm_tpu/cli/eval_msp.py``, plus ``--device
 cuda|cuda:K|cpu`` (default ``cuda``, which raises without a card).  It
 shares the runner's vit-Linear machinery: weight resolution, one upload of
 the parameters, the score step and the streaming score pass, and with it
-data parallelism over the launcher's world (``python -m
-torch.distributed.run --standalone --nproc_per_node N -m
-mcm_tpu_torch.cli.eval_msp ...``), as the JAX CLI is data-parallel over
-every device; rank 0 logs and writes.
+data parallelism.  As the JAX CLI, it has no ``--n_devices`` and runs
+over every visible device: one process over every visible card
+(``--device cuda``; one device on ``cuda:K`` and on the CPU), each batch
+split into one stripe per card; or one process a card under the launcher
+(``python -m torch.distributed.run --standalone --nproc_per_node N -m
+mcm_tpu_torch.cli.eval_msp ...``), where rank 0 logs and writes.
 
 Weights: an HF ``ViTForImageClassification`` snapshot directory
 ``<ckpt_dir>/vit-base-patch16-224/`` (``model.safetensors`` or
@@ -51,8 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out_datasets", default=None, type=str, nargs="+")
     p.add_argument("--num_workers", default=None, type=int)
     p.add_argument("--device", default="cuda", type=device_arg,
-                   help="cuda (this rank's card), cuda:K or cpu (only when "
-                        "asked for)")
+                   help="cuda (every visible card; under the launcher "
+                        "this rank's card), cuda:K or cpu (only when asked "
+                        "for)")
     return p
 
 

@@ -27,23 +27,31 @@ through the native libjpeg decoder (``MCM_TPU_DISABLE_NATIVE=1``: PIL);
 ``--fast_decode`` (its DCT-prescaled mode) raises where the native decoder
 is unavailable.
 
-Data parallel, one process per card::
+Data parallel, in one process over N of its devices, as the JAX CLI runs
+(each batch split into one stripe per device, a model replica on each)::
+
+    python -m mcm_tpu_torch.cli.eval_ood ... --n_devices N
+
+``--device cuda`` takes cards 0 … N-1 (more than are visible raises),
+``--device cuda:K`` puts all N replicas on card K, ``--device cpu`` N CPU
+devices; ``--n_devices`` unset means every visible card.  Or one process
+per card, under the launcher::
 
     python -m torch.distributed.run --standalone --nproc_per_node N \
         -m mcm_tpu_torch.cli.eval_ood ... --n_devices N
 
 Each rank runs on ``cuda:LOCAL_RANK`` (``--device cuda:K`` puts every rank
 on card K) and scores its stripe of every batch; rank 0 writes the results.
-``--n_devices`` unset means the launcher's world size; any other value must
-equal it.
+Under the launcher ``--n_devices`` unset means the world size; any other
+value must equal it.
 
-Tensor parallel, ``--model_parallel T``: each process drives one data group
-of ``T`` devices (``cuda``: cards ``LOCAL_RANK·T … LOCAL_RANK·T + T-1``;
-``cuda:K``: every shard on card K; ``cpu``), so ``--n_devices`` counts
-``world size × T`` devices and ``--nproc_per_node`` is ``n_devices / T``;
-``--n_devices T --model_parallel T`` (or ``--model_parallel T`` alone) runs
-in one process.  The towers run over the shards on the math paths, as JAX
-routes them (a forced kernel raises).
+Tensor parallel, ``--model_parallel T``: each data group is ``T`` devices
+(one process: consecutive cards, or every shard on ``cuda:K``; under the
+launcher, each rank's: ``cuda`` is cards ``LOCAL_RANK·T … LOCAL_RANK·T +
+T-1``), so ``--n_devices N --model_parallel T`` runs ``N/T`` data groups
+of ``T`` shards in one process, and ``--nproc_per_node`` is ``N / T``
+under the launcher.  The towers run over the shards on the math paths, as
+JAX routes them (a forced kernel raises).
 """
 
 import argparse
@@ -123,22 +131,25 @@ def build_parser() -> argparse.ArgumentParser:
                         help="samples per class for mean/precision estimate")
     # -- extensions -----------------------------------------------------------
     parser.add_argument("--device", default="cuda", type=device_arg,
-                        help="cuda (this rank's card: cuda:LOCAL_RANK), "
-                             "cuda:K (every rank on card K) or cpu (only "
-                             "when asked for)")
+                        help="cuda (cards 0 … n_devices-1; under the "
+                             "launcher this rank's card, cuda:LOCAL_RANK), "
+                             "cuda:K (every device or rank on card K) or "
+                             "cpu (only when asked for)")
     parser.add_argument("--precision", default="fast", type=str,
                         choices=["fast", "parity", "bf16", "fp32"],
                         help="bf16 fast path vs fp32 parity path")
     parser.add_argument("--model_parallel", default=1, type=int,
                         help="tensor-parallel size: the devices each "
-                             "process splits the towers' layers over")
+                             "data group splits the towers' layers over")
     parser.add_argument("--n_devices", default=None, type=int,
-                        help="devices of the run, model_parallel per "
-                             "process (default: the launcher's world size × "
-                             "model_parallel); "
-                             "launch N with python -m torch.distributed.run "
-                             "--standalone --nproc_per_node N -m "
-                             "mcm_tpu_torch.cli.eval_ood ... --n_devices N")
+                        help="devices of the run, model_parallel a data "
+                             "group: without a launcher, N devices of this "
+                             "process (default: every visible card); or "
+                             "one process a data group under python -m "
+                             "torch.distributed.run --standalone "
+                             "--nproc_per_node N/model_parallel -m "
+                             "mcm_tpu_torch.cli.eval_ood ... --n_devices N "
+                             "(default: the world size × model_parallel)")
     parser.add_argument("--num_workers", default=None, type=int,
                         help="host decode threads")
     parser.add_argument("--prefetch", default=2, type=int,

@@ -3,10 +3,11 @@ shapes (the JAX package's ``__graft_entry__.py::dryrun_multichip``).
 
 On a local mesh of ``n`` devices (``model_parallel`` 2 when ``n`` is even):
 
-* the train step over one data group of the grid, its towers split over
-  the group's devices (the data axis of training is the ranks of a
-  launch, :func:`~mcm_tpu_torch.train.contrastive.make_train_step`);
-* eval/MCM with the trained weights on the ``n/T × T`` grid;
+* the train step over the whole ``n/T × T`` grid: the batch split over
+  the data groups, each group's towers split over its devices, the
+  gradients summed into the first group's
+  (:func:`~mcm_tpu_torch.train.contrastive.make_train_step`);
+* eval/MCM with the trained weights on the same grid;
 * on the ``n × 1`` grid: eval/MCM, features → Mahalanobis and the ODIN
   gradient pass.
 
@@ -24,7 +25,7 @@ import numpy as np
 from mcm_tpu_torch.config import CLIPConfig, Precision, TextConfig, VisionConfig
 from mcm_tpu_torch.models.init import init_clip
 from mcm_tpu_torch.parallel.eval_step import EvalStep, to_host
-from mcm_tpu_torch.parallel.mesh import Mesh, make_local_mesh
+from mcm_tpu_torch.parallel.mesh import make_local_mesh
 from mcm_tpu_torch.parallel.tensor import host_tree
 from mcm_tpu_torch.train.contrastive import make_train_step
 
@@ -60,10 +61,9 @@ def dryrun_multichip(n_devices: int, device="cuda") -> str:
     text = rng.standard_normal((10, 32)).astype(np.float32)
     text /= np.linalg.norm(text, axis=-1, keepdims=True)
 
-    # the train step on the first data group, split over its devices
-    group = Mesh(1, tp, mesh.device, groups=mesh.groups[:1])
+    # the train step over the grid: DP batch split × TP shards
     init_state, train_step = make_train_step(TINY, precision=precision,
-                                             mesh=group)
+                                             mesh=mesh)
     state, loss = train_step(init_state(init_clip(0, TINY)), images, ids,
                              mask)
     loss = float(_finite("train loss", loss))
@@ -91,7 +91,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> str:
                                     odin_step.put_replicated(text)))
     line = (f"dryrun_multichip({n_devices}): grids=({n_devices // tp}x{tp}, "
             f"{n_devices}x1) on {device} programs=(train loss={loss:.4f} "
-            f"over one {tp}-device group, eval/MCM, features+maha, odin "
-            f"grad) ok")
+            f"over the {n_devices // tp}x{tp} grid, eval/MCM, "
+            f"features+maha, odin grad) ok")
     print(line)
     return line

@@ -8,17 +8,18 @@ only host↔device traffic per batch is uint8 pixels in (through pinned
 memory, asynchronously) and one fp32 score per image out.
 :class:`VitLinearStep` is the same for the supervised ViT + linear head
 (``--model vit-Linear``).  A step is bound to its process's card (the
-mesh's device); under data parallelism each process runs these per-batch
+mesh's device); under a launched group each process runs these per-batch
 programs on its stripe of every batch (:mod:`.multihost`), ODIN included,
 as JAX's ``shard_map`` runs it per shard.
 
-On a single-process mesh of several devices (:func:`~.mesh.make_local_mesh`,
-serving and the bench) :class:`EvalStep` holds one replica of the model on
-each device (:class:`Replicated`), splits every batch into contiguous
-equal stripes (:class:`Striped`, JAX's batch-sharding order), launches the
-program of every stripe on its device before any result is read, and
-:func:`to_host` joins the stripes' results back in row order.  With one
-device nothing is split: the step passes and returns plain tensors.
+On a single-process mesh of several devices (the local form of
+:func:`~.mesh.make_mesh`: the eval CLIs without a launcher, serving, the
+bench) both step classes hold one replica of the model on each data group
+(:class:`Replicated`), split every batch into contiguous equal stripes
+(:class:`Striped`, JAX's batch-sharding order), launch the program of
+every stripe on its device before any result is read, and :func:`to_host`
+joins the stripes' results back in row order.  With one device nothing is
+split: the step passes and returns plain tensors.
 
 On a mesh whose model axis is above 1 each data group holds a
 :class:`~.tensor.ShardedCLIP` (its first device receives the group's
@@ -45,7 +46,7 @@ from mcm_tpu_torch.models import vit as tvit
 from mcm_tpu_torch.models.convert import from_jax_params
 from mcm_tpu_torch.ops.mcm_score import fused_mcm_scores
 from mcm_tpu_torch.parallel import tensor as ttensor
-from mcm_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh, make_mesh,
+from mcm_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh, one_device,
                                          shard_params, validate_tp)
 from mcm_tpu_torch.scores.clip_scores import (CLIP_SCORES, _scores_from_logits,
                                               ieee_fp32_matmul, l2_normalize)
@@ -188,9 +189,9 @@ class _Placement:
 
 class EvalStep(_Placement):
     """Per-batch eval programs bound to this process's card (``mesh.device``;
-    without a mesh, :func:`make_mesh` on ``device``), or to each device of
-    a local mesh (``mesh.devices``: the model, templates and text features
-    :class:`Replicated`, batches and results :class:`Striped`).
+    without a mesh, :func:`~.mesh.one_device` on ``device``), or to each
+    device of a local mesh (``mesh.devices``: the model, templates and text
+    features :class:`Replicated`, batches and results :class:`Striped`).
 
     ``score(params, images_u8, text_feats)``   → [B] fp32 OOD scores
     ``features(params, images_u8)``            → [B, D] image features
@@ -209,7 +210,7 @@ class EvalStep(_Placement):
                  mesh: Optional[Mesh] = None):
         if score not in CLIP_SCORES + ("odin",):
             raise ValueError(f"unknown score {score!r}")
-        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        self.mesh = mesh if mesh is not None else one_device(device)
         validate_tp(cfg, self.mesh)
         # ODIN's override first: it routes to the math paths anyway, so a
         # forced kernel with score="odin" is overridden on every mesh
@@ -352,8 +353,11 @@ class VitLinearStep(_Placement):
     as :class:`EvalStep` (``put_*``, ``score``, ``features``), so the
     runner streams batches identically; ``features`` returns the clean
     classifier *logits*, the substrate every score and the accuracy meter
-    derive from.  Data-parallel only: ``model_parallel > 1`` raises, as in
-    the JAX package.
+    derive from.  Data-parallel only: ``model_parallel > 1``, or a mesh
+    whose model axis is above 1, raises, as in the JAX package.  On a local
+    mesh of several devices the model is :class:`Replicated` and batches
+    and results :class:`Striped`, as :class:`EvalStep`'s; ODIN's gradient
+    pass runs per stripe, in row sub-batches of :data:`ODIN_GRAD_ROWS`.
     """
 
     def __init__(self, cfg: SupervisedViTConfig, score: str = "MCM",
@@ -362,7 +366,8 @@ class VitLinearStep(_Placement):
                  model_parallel: int = 1, mesh: Optional[Mesh] = None):
         if score not in CLIP_SCORES + ("odin",):
             raise ValueError(f"unknown score {score!r}")
-        if model_parallel != 1:
+        self.mesh = mesh if mesh is not None else one_device(device)
+        if model_parallel != 1 or self.mesh.shape[MODEL_AXIS] != 1:
             raise ValueError("--model vit-Linear runs data-parallel only; "
                              "use --model_parallel 1")
         if score == "odin":
@@ -372,15 +377,18 @@ class VitLinearStep(_Placement):
         self.T = float(T)
         self.noise_magnitude = float(noise_magnitude)
         self.precision = precision
-        self.mesh = mesh if mesh is not None else make_mesh(device=device)
         self.device = self.mesh.device
         apply_matmul_policy(precision)
 
     def put_params(self, params) -> tvit.SupervisedViT:
         """Host parameter tree → the model on this step's device, matrices
-        stored in the activation dtype."""
-        return tvit.from_jax_vit_params(params, self.device,
-                                        self.precision.activation_dtype)
+        stored in the activation dtype (a :class:`Replicated` copy on each
+        device of a local mesh)."""
+        dtype = self.precision.activation_dtype
+        if len(self.mesh.devices) == 1:
+            return tvit.from_jax_vit_params(params, self.device, dtype)
+        return Replicated(tvit.from_jax_vit_params(params, d, dtype)
+                          for d in self.mesh.devices)
 
     def _normalize(self, images_u8: torch.Tensor) -> torch.Tensor:
         return normalize_on_device(images_u8, IMAGENET_MEAN, IMAGENET_STD,
@@ -390,6 +398,8 @@ class VitLinearStep(_Placement):
     def features(self, params: tvit.SupervisedViT,
                  images_u8: torch.Tensor) -> torch.Tensor:
         """[B, num_classes] fp32 clean logits (ODIN perturbs scoring only)."""
+        if isinstance(images_u8, Striped):
+            return _over_stripes(self.features, params, images_u8)
         return tvit.forward_logits(params, self.cfg, self._normalize(images_u8),
                                    self.precision)
 
@@ -399,6 +409,8 @@ class VitLinearStep(_Placement):
         normalized pixels against the gradient of the pseudo-label NLL of
         ``logits / T`` first (outside inference mode, IEEE fp32 products on
         the math paths, row sub-batches), then scores with max-softmax."""
+        if isinstance(images_u8, Striped):
+            return _over_stripes(self.score, params, images_u8)
         if self.score_name != "odin":
             with torch.inference_mode():
                 return _scores_from_logits(self.features(params, images_u8),

@@ -5,14 +5,17 @@ The JAX package lays its devices out as a ``jax.sharding.Mesh`` with a
 parallelism) (``mcm_tpu/parallel/mesh.py``): a row of its ``(n/T, T)``
 grid is ``T`` consecutive devices, a *data group*, which together hold one
 copy of the model, each device a ``1/T`` shard of its layers.  The port
-keeps that layout in two forms:
+keeps that layout in two forms, and :func:`make_mesh`, the one function its
+callers call, picks between them:
 
-* :func:`make_mesh`, the eval CLIs' and training's: each process drives
-  one data group, the data axis is the world size of the
-  ``torch.distributed`` group (:mod:`.multihost`);
-* :func:`make_local_mesh`, serving's, the bench's and the dry run's: one
-  process drives every data group of ``n`` devices, and the step splits
-  every batch into one stripe per group.
+* the *local form* (:func:`make_local_mesh`): one process drives every
+  data group of ``n`` of its own devices, and the step splits every batch
+  into one stripe per group.  This is JAX's single-process mesh, and the
+  form of every run started without a launcher: the eval CLIs, training,
+  serving, the bench and the dry run;
+* the *process form*, under ``python -m torch.distributed.run``: each
+  process drives one data group, and the data axis is the world size of
+  the ``torch.distributed`` group (:mod:`.multihost`).
 
 With a model axis of 1 a group is one device holding a whole replica.
 Above 1, :func:`shard_params` splits the layers as :func:`clip_param_specs`
@@ -40,7 +43,8 @@ MODEL_AXIS = "model"
 class Mesh:
     """``shape[DATA_AXIS]`` × ``shape[MODEL_AXIS]`` devices.  ``groups`` are
     the data groups this process drives, each the ``model`` devices of one
-    copy of the model in shard order (the process form holds one group);
+    copy of the model in shard order (the local form holds ``data`` groups,
+    the process form one);
     ``devices`` are the groups' first devices, where each group's stripe of
     a batch and its results live; ``device`` is the first of them."""
 
@@ -98,28 +102,35 @@ def _group_devices(device, model_parallel: int) -> Tuple[torch.device, ...]:
 def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
               device="cuda", entry: str = "mcm_tpu_torch.cli.eval_ood"
               ) -> Mesh:
-    """This process's mesh: one data group of ``model_parallel`` devices
-    per process, so the run spans ``world size × model_parallel`` devices.
-    ``n_devices`` None or 0 means that many (JAX's None: every visible
-    device); any other count must equal it: a run never goes on over fewer
-    devices than asked for, and the error names the launch line of
-    ``entry``, the module run."""
+    """The run's mesh, ``n_devices`` devices in data groups of
+    ``model_parallel``, as JAX's ``make_mesh`` lays them out.
+
+    With no process group up it is the local form
+    (:func:`make_local_mesh`): ``cuda`` is cards ``0 … n-1``, ``cuda:K``
+    puts every device of the mesh on card K, ``cpu`` gives ``n`` CPU
+    devices; ``n_devices`` None or 0 means every visible card (JAX's None:
+    every visible device), or ``model_parallel`` devices on ``cuda:K`` and
+    on the CPU.  Under a launched group it is the process form: this rank's
+    data group, and ``n_devices`` (None or 0: the world size ×
+    ``model_parallel``) must equal the world size × ``model_parallel``.
+    Neither form goes on over fewer devices than asked for: the errors name
+    ``--device cuda:K``, or the launch line of ``entry``, the module run."""
     world = multihost.process_count()
+    if world == 1:
+        dev = resolve_device(device)
+        every_card = dev.type == "cuda" and dev.index is None
+        n = n_devices or (torch.cuda.device_count() if every_card
+                          else model_parallel)
+        return make_local_mesh(n, model_parallel, device)
     n = n_devices or world * model_parallel
     if n % model_parallel:
         raise _not_divisible(n, model_parallel)
     procs = n // model_parallel
     if procs != world:
         tp = f" --model_parallel {model_parallel}" if model_parallel > 1 else ""
-        each = (f"data group of {model_parallel} devices" if tp else "card")
         launch = (f"python -m torch.distributed.run --standalone "
                   f"--nproc_per_node {procs} -m {entry} ... --n_devices {n}"
                   f"{tp}")
-        if world == 1:
-            raise ValueError(
-                f"--n_devices {n} asks for {procs} processes, one per "
-                f"{each}, but no process group is up; launch them with: "
-                f"{launch}")
         raise ValueError(
             f"--n_devices {n} differs from the world size {world}"
             f"{f' × model_parallel {model_parallel}' if tp else ''} of the "
@@ -129,15 +140,22 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
     return Mesh(world, model_parallel, group[0], groups=(group,))
 
 
+def one_device(device="cuda") -> Mesh:
+    """A mesh of this process's one device (JAX's ``make_mesh(1)``, the step
+    classes' default): ``cuda`` is ``cuda:LOCAL_RANK`` (card 0 without a
+    launcher), ``cuda:K`` card K."""
+    return Mesh(1, 1, multihost.rank_device(device))
+
+
 def make_local_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
                     device="cuda") -> Mesh:
-    """One process over ``n_devices`` devices (JAX's single-process mesh of
-    serving and the bench), ``model_parallel`` consecutive devices a data
-    group.  ``n_devices`` None or 0: every visible card (one device on the
-    CPU).  ``device="cuda"``: cards ``0 … n-1``, and more than are visible
-    raises; ``"cuda:K"``: all ``n`` on card K; ``"cpu"``: ``n`` devices on
-    the CPU.  Inside a process group of more than one rank it raises: this
-    form is one process."""
+    """One process over ``n_devices`` devices (JAX's single-process mesh),
+    ``model_parallel`` consecutive devices a data group.  ``n_devices``
+    None or 0: every visible card (``model_parallel`` devices on the CPU).
+    ``device="cuda"``: cards ``0 … n-1``, and more than are visible raises;
+    ``"cuda:K"``: all ``n`` on card K; ``"cpu"``: ``n`` devices on the CPU.
+    Inside a process group of more than one rank it raises: this form is
+    one process."""
     if multihost.process_count() > 1:
         raise ValueError(
             f"a single-process mesh inside a process group of "
@@ -149,18 +167,18 @@ def make_local_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
                           else model_parallel))
     if n < 1:
         raise ValueError(f"n_devices={n}: no device is visible on {device!r}")
-    if n % model_parallel:
-        raise _not_divisible(n, model_parallel)
     if dev.type == "cuda" and dev.index is None:
         visible = torch.cuda.device_count()
         if n > visible:
             raise ValueError(
                 f"n_devices={n} but {visible} card(s) are visible; pass at "
-                f"most {visible}, or device='cuda:K' to put every replica "
-                f"on card K")
+                f"most {visible}, or --device cuda:K (device='cuda:K') to "
+                f"put every replica on card K")
         devices = tuple(torch.device("cuda", k) for k in range(n))
     else:
         devices = (dev,) * n
+    if n % model_parallel:
+        raise _not_divisible(n, model_parallel)
     groups = tuple(devices[i:i + model_parallel]
                    for i in range(0, n, model_parallel))
     return Mesh(n // model_parallel, model_parallel, devices[0],

@@ -2,7 +2,7 @@
 
 Mirrors the reference's ``eval_ood_detection.py:main`` (``:53-99``) flow:
 model → ID loader → labels → ID scores → per-OOD-set scores → metrics →
-plots → CSV, on one CUDA device per process:
+plots → CSV, on the devices of the run's mesh:
 
 * text prompts tokenized + encoded once per ID dataset (the reference
   re-encodes them every batch, ``detection_util.py:228-231``);
@@ -18,19 +18,24 @@ plots → CSV, on one CUDA device per process:
   were produced under the same configuration and weights;
 * Mahalanobis templates are cached as ``.npz`` (the reference uses
   ``.pt``, ``detection_util.py:175-176``; a reference pair is read too);
-* data parallel under ``python -m torch.distributed.run`` (one process per
-  card, :mod:`mcm_tpu_torch.parallel.multihost`): each rank decodes and
-  scores its stripe of every batch and the passes gather the outputs back
-  into dataset order on every rank.  Which caches exist is read once, on
-  rank 0, and broadcast, so every rank takes the same passes; only rank 0
-  logs and writes (caches, templates, CSV, plots), the others wait for it.
+* data parallel in two forms (``parallel/mesh.py::make_mesh``):
+  ``--n_devices N`` without a launcher runs one process over N of its
+  devices, as JAX's runner does: each batch splits into one stripe per
+  data group, a model replica on each, and the stripes' results come back
+  in dataset order (:func:`~mcm_tpu_torch.parallel.eval_step.to_host`).
+  Under ``python -m torch.distributed.run`` (one process per card,
+  :mod:`mcm_tpu_torch.parallel.multihost`) each rank decodes and scores
+  its stripe of every batch and the passes gather the outputs back into
+  dataset order on every rank.  Which caches exist is read once, on rank
+  0, and broadcast, so every rank takes the same passes; only rank 0 logs
+  and writes (caches, templates, CSV, plots), the others wait for it.
 
 This covers ``--model CLIP`` with every score (the five logit scores,
 ``maha`` and ``odin``), ``--model CLIP-Linear`` (the same, on a fine-tuned
 tree from ``--finetune_ckpt``, as ``mcm_tpu_torch.tools.finetune_clip``
 writes it) and ``--model vit-Linear`` (the supervised ViT + linear head,
 scored from its logits; ``maha`` refused).  ``--model_parallel T``
-splits the CLIP towers over ``T`` devices of each process
+splits the CLIP towers over ``T`` devices of each data group
 (:mod:`mcm_tpu_torch.parallel.tensor`); ``vit-Linear`` refuses it, as in
 the JAX package.
 """
@@ -138,8 +143,9 @@ def check_ported(cfg: RunConfig) -> None:
 
 
 def _validate_batch_divisibility(cfg: RunConfig, mesh: Mesh) -> None:
-    """Fail before the weights load: each of the mesh's processes scores an
-    equal stripe of every (padded, static) batch."""
+    """Fail before the weights load: each data group of the mesh (a device
+    of this process, or a rank) scores an equal stripe of every (padded,
+    static) batch."""
     dp = mesh.shape[DATA_AXIS]
     if cfg.batch_size % dp:
         raise ValueError(
@@ -243,8 +249,9 @@ def build_model_and_step(cfg: RunConfig, log=None, defer_put: bool = False,
     tokenizer) on this process's mesh (``mesh``: a mesh the caller made,
     e.g. serving's :func:`~mcm_tpu_torch.parallel.mesh.make_local_mesh`);
     returns the model on the step's device, the tokenizer and the step.  A
-    mesh that cannot be made (an ``--n_devices`` other than the world size)
-    or a batch its processes cannot split raises before any weight loads.
+    mesh that cannot be made (more devices than are visible, or under a
+    launch an ``--n_devices`` other than the world size) or a batch its
+    data groups cannot split raises before any weight loads.
 
     ``defer_put=True`` returns, in the model's place, a zero-argument
     function that gives the HOST parameter tree (random CLIP weights are
@@ -802,7 +809,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
                     _text["host"] = data["text_features"]
                 log.debug("resume: loaded cached text features")
             else:
-                _text["host"] = text_dev().cpu().numpy()
+                _text["host"] = to_host(text_dev())
                 if writer:
                     atomic_write(_text_cache, lambda f: np.savez(
                         f, text_features=_text["host"]))

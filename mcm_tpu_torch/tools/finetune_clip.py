@@ -12,19 +12,28 @@ the JAX package's ``tools/finetune_clip.py``, plus ``--device`` (default
 ``cuda``).  Its optimizer: ``optax.adamw(lr)`` with optax's weight decay
 of 1e-4 on the ``ndim >= 2`` leaves.
 
-Data-parallel over N cards, one process each, ``-b`` the global batch:
+Data-parallel over N devices, ``-b`` the global batch: in one process,
+as the JAX tool runs (``--device cuda``: cards 0 … N-1; ``cuda:K``: N
+replicas on card K; ``cpu``), each step splitting its batch over them and
+summing their gradients on the devices::
+
+    python -m mcm_tpu_torch.tools.finetune_clip ... --n_devices N
+
+or one process a card under the launcher (``--device cuda:K`` puts every
+rank on card K), the gradients summed over gloo::
 
     python -m torch.distributed.run --standalone --nproc_per_node N \
         -m mcm_tpu_torch.tools.finetune_clip ... --n_devices N
 
-(``--device cuda:K`` puts every rank on card K).  ``--n_devices`` is the
-world size (unset: the launcher's); above 1 without the launcher it raises
-with that line.  ``--model_parallel T`` splits both towers over ``T``
-devices of each rank (``cuda``: cards ``LOCAL_RANK·T …``; ``cuda:K``: every
-shard on card K), so ``--n_devices`` counts ``world size × T`` and
-``--n_devices T --model_parallel T`` is one process; the checkpoint and
-its train state are written unsharded, as a ``--model_parallel 1`` run
-writes them.
+``--n_devices`` unset means every visible card in one process, and the
+world size under the launcher, where any other value raises with that
+line.  ``--model_parallel T`` splits both towers over ``T`` devices of
+each data group, so ``--n_devices N --model_parallel T`` trains ``N/T``
+groups of ``T`` shards in one process (``--nproc_per_node N/T`` under the
+launcher).  The checkpoint and its train state are written once,
+unsharded, as a one-device run writes them, and resume at any
+``--n_devices`` and ``--model_parallel``, in one process or under the
+launcher.
 """
 
 from __future__ import annotations
@@ -58,8 +67,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                    help="continue from <out>.train_state.npz (optimizer "
                         "moments + epoch) if present")
     p.add_argument("--device", default="cuda", type=str,
-                   help="cuda (default: cuda:LOCAL_RANK under the launcher; "
-                        "raises without a card), cuda:K or cpu")
+                   help="cuda (default: cards 0 … n_devices-1, under the "
+                        "launcher cuda:LOCAL_RANK; raises without a card), "
+                        "cuda:K or cpu")
     args = p.parse_args(argv)
 
     from mcm_tpu_torch.parallel import multihost
@@ -84,8 +94,8 @@ def _finetune(args) -> str:
                     allow_random_weights=args.allow_random_weights,
                     model_parallel=args.model_parallel,
                     n_devices=args.n_devices)
-    # a --n_devices the launch does not give raises with this tool's
-    # launch line; then the build checks the batch split, both before any
+    # a mesh that cannot be made raises (under a launch with this tool's
+    # launch line); then the build checks the batch split, both before any
     # weight loads
     make_mesh(cfg.n_devices, cfg.model_parallel, device=cfg.device,
               entry="mcm_tpu_torch.tools.finetune_clip")

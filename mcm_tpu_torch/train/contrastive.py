@@ -5,15 +5,21 @@
 * symmetric InfoNCE over ``logit_scale · img@txtᵀ``, with soft targets
   over duplicate captions (:func:`clip_contrastive_loss`);
 * one train step: normalize → both towers → loss → backward → AdamW step
-  → the temperature clamp, on one device, or data-parallel over the ranks
-  of a process group (one per card): each rank encodes its stripe of the
-  global batch, the features and captions are gathered
-  (:func:`~mcm_tpu_torch.parallel.multihost.gather_rows`) into JAX's
-  global B×B loss, and one all-reduce sums the gradients before the
-  identical AdamW step on every rank; on a mesh whose model axis is
-  ``T`` > 1 both towers run over ``T`` shards of the model
-  (:mod:`mcm_tpu_torch.parallel.tensor`), one AdamW steps every shard's
-  leaves and their moments live on the shard's device;
+  → the temperature clamp, on one device, or data-parallel as JAX's step
+  over a mesh.  On a local mesh (one process over several devices, JAX's
+  single-process mesh) the global batch splits into one stripe per data
+  group, each group encodes its stripe on its own devices, the features
+  and captions are joined on the mesh's first device into JAX's global
+  B×B loss, one backward runs through every group, and each replica's
+  gradient is summed into the first's on the devices before one AdamW
+  step there.  Under a launched group (one rank per card) each rank
+  encodes its stripe, the features and captions are gathered
+  (:func:`~mcm_tpu_torch.parallel.multihost.gather_rows`) into the same
+  loss, and one all-reduce sums the gradients before the identical AdamW
+  step on every rank.  On a mesh whose model axis is ``T`` > 1 both towers
+  run over ``T`` shards of the model (:mod:`mcm_tpu_torch.parallel.tensor`),
+  one AdamW steps every shard's leaves and their moments live on the
+  shard's device;
 * gradient checkpointing over each whole tower (``jax.checkpoint`` wraps
   ``encode_image`` and ``encode_text`` in JAX; here
   ``torch.utils.checkpoint``), trading a second forward for memory.
@@ -153,19 +159,30 @@ def make_train_step(cfg: CLIPConfig,
                     device="cuda", remat: bool = True,
                     mesh: Optional[Mesh] = None
                     ) -> Tuple[Callable, Callable]:
-    """Build ``(init_state, train_step)`` on one device, or on this rank's
-    data group of ``mesh`` (:func:`~mcm_tpu_torch.parallel.mesh.make_mesh`;
-    its first device replaces ``device``; a model axis above 1 shards the
-    towers over the group's devices).
+    """Build ``(init_state, train_step)`` on one device, or over ``mesh``
+    (:func:`~mcm_tpu_torch.parallel.mesh.make_mesh`; its first device
+    replaces ``device``; a model axis above 1 shards the towers over each
+    data group's devices).
 
     ``init_state(params)`` takes the numpy tree (``init_clip``,
     ``load_params``); ``train_step(state, images_u8 [B,H,W,3], input_ids
     [B,S], mask [B,S]) → (state, loss)``, host arrays or tensors in, the
-    loss a 0-d fp32 tensor on the device (read it when the host needs it).
-    On a mesh of ``n`` ranks the arrays are this rank's stripe of a global
-    batch of ``n·B`` and the loss is the global batch's, the same on every
-    rank; ``train_step.comm_s`` accumulates the seconds of the collectives
-    (with their host copies, timed from a synchronized device).
+    loss a 0-d fp32 tensor on the mesh's first device (read it when the
+    host needs it).
+
+    On a local mesh of ``G`` data groups the arrays are the global batch
+    (``G`` must divide ``B``), ``state.params`` is the first group's model
+    and the others are replicas that ``init_state`` builds beside it: each
+    step copies the parameters out to them before its forward, runs group
+    ``g`` on rows ``[g·B/G, (g+1)·B/G)``, and sums their gradients into
+    the first group's (shard ``j`` of a group into shard ``j`` of the
+    first), on the devices and in group order, before the one AdamW step.
+    Under a launched group of ``n`` ranks the arrays are this rank's stripe
+    of a global batch of ``n·B`` and the loss is the global batch's, the
+    same on every rank.  ``train_step.comm_s`` accumulates the seconds of
+    the moves between data groups (the joins, the gradient sum, the copy
+    to the replicas; under a launch the collectives with their host
+    copies), timed from synchronized devices.
 
     Attention as in JAX: ``precision.attn_impl == "pallas_bsd_vjp"`` keeps
     the trainable bsd route (the kernel's forward, the math path's
@@ -177,12 +194,14 @@ def make_train_step(cfg: CLIPConfig,
         # CLIP recipe: weight decay on the ndim >= 2 leaves (decay_matrices)
         optimizer = adamw(1e-5, weight_decay=0.2, mask=decay_matrices)
     device = resolve_device(device) if mesh is None else mesh.device
-    world = 1 if mesh is None else mesh.data
+    groups = ((device,),) if mesh is None else mesh.groups
+    local = len(groups)                       # data groups of this process
+    world = 1 if mesh is None or local > 1 else mesh.data   # launched ranks
     tp = 1 if mesh is None else mesh.model
     if mesh is not None:
         validate_tp(cfg, mesh)
     if precision.attn_impl == "pallas_bsd_vjp":
-        if world * tp != 1:
+        if mesh is not None and mesh.data * mesh.model != 1:
             raise ValueError("attn_impl=pallas_bsd_vjp cannot be "
                              "pjit-partitioned — use a single-device mesh "
                              "or attn_impl='xla'")
@@ -191,6 +210,11 @@ def make_train_step(cfg: CLIPConfig,
         attn = "xla"
     precision = dataclasses.replace(precision, attn_impl=attn, mlp_impl="xla")
     apply_matmul_policy(precision)
+    cards = sorted({d for g in groups for d in g if d.type == "cuda"},
+                   key=str)
+    #: the model ``init_state`` built last and its replicas on the other
+    #: data groups of a local mesh
+    built: dict = {"lead": None, "replicas": []}
 
     def encode_image(params, x):
         return ttensor.encode_image(params, cfg.vision, x, precision)
@@ -206,23 +230,47 @@ def make_train_step(cfg: CLIPConfig,
 
     def collective(fn, *args):
         """``fn(*args)``, its seconds added to ``train_step.comm_s``."""
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        for card in cards:
+            torch.cuda.synchronize(card)
         t = time.perf_counter()
         out = fn(*args)
         train_step.comm_s += time.perf_counter() - t
         return out
 
-    def train_step(state: TrainState, images_u8, input_ids, mask):
-        params, opt = state.params, state.opt_state
-        images = _as_device(images_u8, device)
-        ids = _as_device(input_ids, device)
-        mask = _as_device(mask, device)
-        opt.zero_grad(set_to_none=True)
+    def forward(model, group, images_u8, input_ids, mask):
+        """One data group's towers on its stripe: ``(img, txt, ids,
+        mask)`` on the group's first device."""
+        dev = group[0]
+        images, ids, mask = (_as_device(x, dev)
+                             for x in (images_u8, input_ids, mask))
         x = normalize_on_device(images, CLIP_MEAN, CLIP_STD,
                                 dtype=precision.activation_dtype)
-        img = tower(encode_image, params, x)
-        txt = tower(encode_text, params, ids, mask)
+        return (tower(encode_image, model, x),
+                tower(encode_text, model, ids, mask), ids, mask)
+
+    def train_step(state: TrainState, images_u8, input_ids, mask):
+        params, opt = state.params, state.opt_state
+        opt.zero_grad(set_to_none=True)
+        if local == 1:
+            img, txt, ids, mask = forward(params, groups[0], images_u8,
+                                          input_ids, mask)
+        else:
+            if built["lead"] is not params:
+                raise ValueError("a train state of another init_state: "
+                                 "its replicas are not this step's")
+            models = [params, *built["replicas"]]
+            collective(_copy_to_replicas, models)
+            n = len(images_u8)
+            if n % local:
+                raise ValueError(f"a batch of {n} rows does not split over "
+                                 f"the {local} data groups of the mesh")
+            b = n // local
+            parts = [forward(m, g, *(x[i * b:(i + 1) * b] for x in
+                                     (images_u8, input_ids, mask)))
+                     for i, (m, g) in enumerate(zip(models, groups))]
+            # JAX's global B×B loss on the first device, stripes in order
+            img, txt, ids, mask = (collective(_join, p, device)
+                                   for p in zip(*parts))
         if world > 1:
             # JAX's global B×B loss: every rank's rows, this rank's live
             img, txt, ids, mask = (collective(multihost.gather_rows, t)
@@ -234,6 +282,8 @@ def make_train_step(cfg: CLIPConfig,
         loss.backward()
         if world > 1:
             _sum_gradients(params, collective)
+        if local > 1:
+            collective(_sum_replica_gradients, models)
         opt.step()
         with torch.no_grad():
             # the CLIP temperature clamp (see MAX_LOGIT_SCALE)
@@ -242,20 +292,64 @@ def make_train_step(cfg: CLIPConfig,
 
     def init_state(params) -> TrainState:
         if tp > 1:
-            model = shard_params(params, mesh, trainable=True)[0]
+            models = shard_params(params, mesh, trainable=True)
             # each leaf's slices side by side, in the unsharded tree's order
             named = [(f"{name}.{j}", p)
-                     for name, parts, _ in ttensor.logical_parameters(model)
+                     for name, parts, _ in ttensor.logical_parameters(
+                         models[0])
                      for j, p in enumerate(parts)]
         else:
-            model = from_jax_params(params, device, trainable=True)
-            named = list(model.named_parameters())
+            models = [from_jax_params(params, g[0], trainable=True)
+                      for g in groups]
+            named = list(models[0].named_parameters())
+        built.update(lead=models[0], replicas=models[1:])
         opt = optimizer(named)
         init_optimizer_state(opt)
-        return TrainState(model, opt, 0)
+        return TrainState(models[0], opt, 0)
 
     train_step.comm_s = 0.0
     return init_state, train_step
+
+
+def _join(parts, device: torch.device) -> torch.Tensor:
+    """The data groups' rows, in group order, on ``device`` (a move that
+    autograd follows back to each group)."""
+    return torch.cat([p.to(device) for p in parts])
+
+
+@torch.no_grad()
+def _copy_to_replicas(models) -> None:
+    """The first model's parameters into every replica (shard ``j`` into
+    shard ``j``), device to device, and the replicas' gradients dropped."""
+    lead = ttensor.logical_parameters(models[0])
+    for model in models[1:]:
+        for (_, src, _), (_, dst, _) in zip(
+                lead, ttensor.logical_parameters(model)):
+            for s, d in zip(src, dst):
+                d.copy_(s)
+                d.grad = None
+
+
+@torch.no_grad()
+def _sum_replica_gradients(models) -> None:
+    """Every replica's gradient summed into the first model's, on the
+    first model's devices and in replica order (shard ``j`` of each group
+    into shard ``j`` of the first).  A leaf a replica took no gradient for
+    is skipped: ``logit_scale`` enters the loss once, through the first
+    model, so it counts once, as :func:`_sum_gradients` counts it over
+    ranks."""
+    lead = ttensor.logical_parameters(models[0])
+    for model in models[1:]:
+        for (_, mine, _), (_, theirs, _) in zip(
+                lead, ttensor.logical_parameters(model)):
+            for p, q in zip(mine, theirs):
+                if q.grad is None:
+                    continue
+                g = q.grad.to(p.device)
+                if p.grad is None:
+                    p.grad = g.clone()
+                else:
+                    p.grad.add_(g)
 
 
 def _sum_gradients(params: tclip.CLIP, collective) -> None:

@@ -8,15 +8,20 @@ zero-shot evaluator scores with), and per-epoch ``.npz`` checkpoints that
 ``--model CLIP-Linear`` loads, beside a full train-state sibling for
 ``resume``.
 
-Under ``python -m torch.distributed.run`` (one rank per card, the mesh of
-:func:`~mcm_tpu_torch.parallel.mesh.make_mesh`) every rank draws the same
-permutation, decodes its stripe of each global batch and takes the
-data-parallel step; the parameters stay equal on every rank, so rank 0
-alone logs and writes both files (where JAX writes orbax for params that
-span processes), and it alone decides whether ``resume`` finds a state.
-A tensor-parallel model is written unsharded: both files have the layout
-of a run with a model axis of 1, and a resume shards them again, so a
-state saved at one ``model_parallel`` resumes at another.
+On a local mesh (one process over several devices, the default form of
+:func:`~mcm_tpu_torch.parallel.mesh.make_mesh`) the process decodes each
+global batch whole and the step splits it over its data groups; the
+checkpoint is the first group's model, written once.  Under ``python -m
+torch.distributed.run`` (one rank per card, the process form) every rank
+draws the same permutation, decodes its stripe of each global batch and
+takes the data-parallel step; the parameters stay equal on every rank, so
+rank 0 alone logs and writes both files (where JAX writes orbax for
+params that span processes), and it alone decides whether ``resume``
+finds a state.  A tensor-parallel model is written unsharded: both files
+have the layout of a run with a model axis of 1 on one device, and a
+resume shards and replicates them again, so a state saved at one
+``n_devices`` or ``model_parallel``, in one process or under a launch,
+resumes at another.
 """
 
 from __future__ import annotations
@@ -79,9 +84,10 @@ def train_clip(cfg: CLIPConfig, dataset, class_names: Sequence[str],
     the next epoch; the shuffle stream of completed epochs is replayed, so
     a resumed run walks the batches of an uninterrupted one.
 
-    ``mesh`` (default: :func:`make_mesh` on ``device``, the world size of
-    the process group) sets the ranks: ``batch_size`` is the global batch,
-    and must divide by them.  Only rank 0 calls ``log``.
+    ``mesh`` (default: :func:`make_mesh` on ``device``: every visible card
+    in this process, or under a launch the world size of the process
+    group) sets the data groups: ``batch_size`` is the global batch, and
+    must divide by them.  Only rank 0 calls ``log``.
     """
     if mesh is None:
         mesh = make_mesh(None, device=device)

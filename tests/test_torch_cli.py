@@ -191,19 +191,12 @@ def test_cli_without_card_raises_unless_cpu(tmp_path, monkeypatch):
                                    ["--fast_decode", "--n_devices", "2"],
                                    ["--model_parallel", "2"]])
 def test_unported_options_raise(tmp_path, monkeypatch, flags):
-    """``--n_devices 2`` in one process raises naming the launcher, which
-    starts one process per device (no silent fall-back to one device).
-    ``--model_parallel 2`` is ported: on these flags (no dataset tree, no
+    """``--n_devices 2`` and ``--model_parallel 2`` are ported, in one
+    process as the JAX CLI runs them: on these flags (no dataset tree, no
     ``--finetune_ckpt``) the port raises what the JAX CLI raises for the
-    same call, after the tensor-parallel mesh is made."""
+    same call, after the mesh of two devices is made."""
     from mcm_tpu_torch.cli.eval_ood import main
     monkeypatch.chdir(tmp_path)
-    if "--n_devices" in flags:
-        with pytest.raises(ValueError, match="torch.distributed.run "
-                           "--standalone --nproc_per_node 2 -m "
-                           "mcm_tpu_torch.cli.eval_ood"):
-            main(["--device", "cpu", "--allow_random_weights"] + flags)
-        return
     from mcm_tpu.cli.eval_ood import main as jax_main
     monkeypatch.setattr(sys, "argv", ["eval_ood_detection.py",
                                       "--allow_random_weights"] + flags)

@@ -95,34 +95,30 @@ def test_finetune_resume_continues(finetuned, root, tmp_path, monkeypatch):
     (["--model_parallel", "2"], ValueError,
      r"^dataset \(8\) smaller than batch \(64\)$"),
     (["--n_devices", "2"], ValueError,
-     r"no process group is up; launch them with: python -m "
-     r"torch.distributed.run --standalone --nproc_per_node 2 -m "
-     r"mcm_tpu_torch.tools.finetune_clip \.\.\. --n_devices 2")])
+     r"^dataset \(8\) smaller than batch \(64\)$")])
 def test_finetune_refuses_several_devices(tmp_path, monkeypatch, root, flags,
                                           error, match):
-    """Data parallelism needs the launcher, whose line the error names.
-    Tensor parallelism is ported: ``--model_parallel 2`` builds its two
-    shards in this one process and then raises what the JAX tool raises
-    for the same call on its CPU mesh (8 training images, the default
-    ``-b 64``)."""
+    """Both kinds of parallelism are ported in one process, as the JAX
+    tool runs them: ``--model_parallel 2`` builds its two shards and
+    ``--n_devices 2`` its two replicas, and each then raises what the JAX
+    tool raises for the same call on its CPU mesh (8 training images, the
+    default ``-b 64``)."""
     from mcm_tpu_torch.tools import finetune_clip
     _in_tmp(monkeypatch, tmp_path)
     with pytest.raises(error, match=match):
         finetune_clip.main(["--root-dir", str(root), "--device", "cpu",
                             "--allow_random_weights"] + flags)
-    if "--model_parallel" in flags:
-        import importlib.util
-        spec = importlib.util.spec_from_file_location(
-            "jax_finetune_clip", os.path.join(REPO, "tools",
-                                              "finetune_clip.py"))
-        jax_tool = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(jax_tool)
-        monkeypatch.setattr(sys, "argv", ["finetune_clip.py", "--root-dir",
-                                          str(root), "--allow_random_weights"]
-                            + flags)
-        with warnings.catch_warnings(), pytest.raises(error, match=match):
-            warnings.simplefilter("ignore")
-            jax_tool.main()
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "jax_finetune_clip", os.path.join(REPO, "tools", "finetune_clip.py"))
+    jax_tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_tool)
+    monkeypatch.setattr(sys, "argv", ["finetune_clip.py", "--root-dir",
+                                      str(root), "--allow_random_weights"]
+                        + flags)
+    with warnings.catch_warnings(), pytest.raises(error, match=match):
+        warnings.simplefilter("ignore")
+        jax_tool.main()
 
 
 def test_clip_linear_csv_matches_jax_cli(finetuned, root, tmp_path):

@@ -31,7 +31,10 @@ summation order) of an IEEE fp32 reference.  Data parallelism: one batch
 through a gloo group of one process is bit-equal to the one-process step;
 ODIN's gradient pass in sub-batches is held to 2e-5 of the largest score
 against one pass; the serving detector on two replicas of one card
-launches the kernels on each and scores as one replica does.  Not a
+launches the kernels on each and scores as one replica does; a parity
+train step on two replicas of card 0 (one process, the gradient summed on
+the card) gives the one-device loss and gradient, and ``VitLinearStep``
+on two replicas launches bsd on each and scores as one device.  Not a
 kernel, but checked on
 the card's host: the native JPEG decoder builds, loads and passes its
 self-test there.  Tensor parallelism: two shards of card 0 score as one
@@ -1166,3 +1169,77 @@ def test_native_decoder_builds_and_loads_on_the_card_host(cuda, tmp_path):
         ref = preprocess_uint8(img, 224)
     diff = np.abs(got.astype(np.int32) - ref)
     assert diff.max() <= 2 and diff.mean() < 0.5
+
+
+# -- data parallelism in one process: two replicas of card 0 ------------------
+
+def test_local_mesh_train_step_on_two_replicas_matches_one_device(cuda):
+    """A parity train step on ``make_mesh(2, device="cuda:0")`` (two
+    replicas of card 0, the batch of 8 split 4 + 4, the joins and the
+    gradient sum device to device) against the one-device step: the loss
+    at rel 1e-5 and every leaf's gradient within 1e-4 of its largest |g|
+    (a leaf that is all rounding, the key biases, within 1e-6 of the
+    largest of all)."""
+    from mcm_tpu_torch.models.init import init_clip
+    from mcm_tpu_torch.parallel.mesh import make_mesh
+    from mcm_tpu_torch.train import make_train_step
+
+    cfg = _tiny_bsd_clip()
+    params = init_clip(0, cfg)
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, size=(8, 32, 32, 3), dtype=np.uint8)
+    ids = rng.integers(1, 100, size=(8, 16)).astype(np.int32)
+    ids[:, -1] = 127
+    ids[6] = ids[1]   # a duplicate caption across the two stripes
+    mask = np.ones_like(ids)
+    out = []
+    for mesh in (None, make_mesh(2, device="cuda:0")):
+        init_state, step = make_train_step(
+            cfg, precision=Precision.parity(), device=cuda, mesh=mesh,
+            remat=False, optimizer=lambda named: torch.optim.SGD(
+                [p for _, p in named], lr=0.0))
+        state, loss = step(init_state(params), images, ids, mask)
+        out.append((float(loss), {
+            n: p.grad.float().cpu().numpy()
+            for n, p in state.params.named_parameters()}))
+    (want_loss, want), (got_loss, got) = out
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for n, w in want.items():
+        scale = float(np.abs(w).max())
+        bound = 1e-4 * scale if scale > 1e-5 * top else 1e-6 * top
+        assert np.abs(got[n] - w).max() <= bound, n
+
+
+def test_vit_linear_step_on_two_replicas_matches_one_device(cuda):
+    """``VitLinearStep`` on two replicas of card 0 against one device, in
+    fast mode: each replica's stripe of 4 launches bsd once a layer, and
+    the logits and scores agree within the bucket bound (a stripe of 4
+    sums in another order than a batch of 8)."""
+    from mcm_tpu_torch.config import SupervisedViTConfig
+    from mcm_tpu_torch.models.init import init_supervised_vit
+    from mcm_tpu_torch.parallel import VitLinearStep
+    from mcm_tpu_torch.parallel.eval_step import Replicated, Striped, to_host
+    from mcm_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = SupervisedViTConfig(width=128, layers=2, heads=2, num_classes=10)
+    params = init_supervised_vit(0, cfg)
+    images = np.random.default_rng(6).integers(0, 256, size=(8, 224, 224, 3),
+                                               dtype=np.uint8)
+    out = []
+    for mesh in (make_mesh(1, device="cuda:0"), make_mesh(2, device="cuda:0")):
+        step = VitLinearStep(cfg, precision=Precision.fast(), mesh=mesh)
+        model = step.put_params(params)
+        before = attention.bsd_attention.launches
+        feats = step.features(model, step.put_batch(images))
+        scores = step.score(model, step.put_batch(images))
+        torch.cuda.synchronize()
+        out.append((to_host(feats), to_host(scores),
+                    attention.bsd_attention.launches - before))
+        if len(mesh.devices) > 1:
+            assert isinstance(model, Replicated)
+            assert isinstance(scores, Striped) and len(scores) == 2
+    (f1, s1, n1), (f2, s2, n2) = out
+    assert n1 == 2 * cfg.layers and n2 == 2 * 2 * cfg.layers
+    np.testing.assert_allclose(f2, f1, rtol=5e-3, atol=5e-4)
+    np.testing.assert_allclose(s2, s1, rtol=5e-3, atol=5e-4)

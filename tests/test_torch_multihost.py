@@ -170,16 +170,24 @@ def test_mesh_world_of_one():
 
 
 def test_mesh_refuses_devices_it_does_not_have(monkeypatch):
-    """``--n_devices 2`` in one process names the launcher; against a group
-    of another size it names the world size; a device count that
+    """``--n_devices 2`` in one process gives JAX's mesh for the same call,
+    two devices of the process; more cards than are visible raises, as
+    JAX's more devices than it sees, naming ``--device cuda:K``; against a
+    group of another size it names the world size; a device count that
     ``model_parallel`` does not divide raises JAX's error.  No fall-back to
     fewer devices than asked for."""
-    with pytest.raises(ValueError, match=r"no process group is up; launch "
-                       r"them with: python -m torch.distributed.run "
-                       r"--standalone --nproc_per_node 2 -m "
-                       r"mcm_tpu_torch.cli.eval_ood \.\.\. --n_devices 2"):
-        tmesh.make_mesh(2, device="cpu")
     from mcm_tpu.parallel import make_mesh as jax_make_mesh
+    m = tmesh.make_mesh(2, device="cpu")
+    assert m.shape == dict(jax_make_mesh(2).shape)
+    assert m.devices == (torch.device("cpu"),) * 2
+    with pytest.raises(ValueError, match="requested n_devices=9 but only 8"):
+        jax_make_mesh(9)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match=r"n_devices=2 but 1 card\(s\) "
+                           r"are visible; .*--device cuda:K"):
+            tmesh.make_mesh(2, device="cuda")
     with pytest.raises(ValueError) as want:
         jax_make_mesh(1, model_parallel=2)
     with pytest.raises(ValueError) as got:

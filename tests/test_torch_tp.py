@@ -725,8 +725,10 @@ def test_process_form_groups(monkeypatch):
     """The process form: each rank drives ``T`` devices; ``cuda`` is cards
     ``LOCAL_RANK·T …``, too few raises naming ``--device cuda:K``,
     ``cuda:K`` puts every shard on card K, and a count other than world ×
-    T names the launch line with ``n_devices / T`` processes.  (No CUDA
-    call is made: availability and count are stood in for.)"""
+    T names the launch line with ``n_devices / T`` processes.  With no
+    group up the same call gives JAX's mesh for it, ``n / T`` groups of
+    ``T`` devices in this process.  (No CUDA call is made: availability
+    and count are stood in for.)"""
     from mcm_tpu_torch.parallel import multihost
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
@@ -746,11 +748,10 @@ def test_process_form_groups(monkeypatch):
                        r"--model_parallel 2"):
         make_mesh(2, 2, device="cpu")
     monkeypatch.setattr(multihost, "process_count", lambda: 1)
-    with pytest.raises(ValueError, match=r"asks for 2 processes, one per data "
-                       r"group of 2 devices, but no process group is up; "
-                       r".*--nproc_per_node 2 .* --n_devices 4 "
-                       r"--model_parallel 2"):
-        make_mesh(4, 2, device="cpu")
+    from mcm_tpu.parallel import make_mesh as jax_make_mesh
+    local = make_mesh(4, 2, device="cpu")
+    assert local.shape == dict(jax_make_mesh(4, model_parallel=2).shape)
+    assert local.groups == ((torch.device("cpu"),) * 2,) * 2
     assert make_mesh(2, 2, device="cpu").describe() == \
         "data 1 × model 2 on cpu, cpu"
 
