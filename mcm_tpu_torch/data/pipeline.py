@@ -18,6 +18,7 @@ only its stripe of every global batch (:mod:`mcm_tpu_torch.parallel.multihost`).
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -55,13 +56,19 @@ class DataPipeline:
                     decodes; default: this process's stripe of the
                     ``torch.distributed`` group ((0, batch_size) without
                     one), taken at the first decode.
+    telemetry:      a :class:`~mcm_tpu_torch.utils.telemetry.Telemetry`
+                    that records a ``pipeline.decode`` span a batch and the
+                    ``pipeline.rows`` counter on the decode thread, and a
+                    ``pipeline.wait`` span a batch around the consumer's
+                    wait on the prefetch queue; None records nothing.
     """
 
     def __init__(self, dataset, batch_size: int, image_size: int = 224,
                  num_workers: Optional[int] = None, prefetch: int = 2,
                  drop_remainder: bool = False, use_native: bool = True,
                  fast_decode: bool = False,
-                 stripe: Optional[Tuple[int, int]] = None):
+                 stripe: Optional[Tuple[int, int]] = None,
+                 telemetry=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.image_size = image_size
@@ -82,6 +89,12 @@ class DataPipeline:
         # ``valid`` stays the GLOBAL count; the stripe's padding is dropped
         # by ``assemble_global_outputs`` after readback.
         self._stripe = stripe
+        self.telemetry = telemetry
+
+    def _span(self, name: str, **attrs):
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return self.telemetry.stage(name, **attrs)
 
     @property
     def stripe(self) -> Tuple[int, int]:
@@ -107,12 +120,15 @@ class DataPipeline:
 
     # -- batch decode ---------------------------------------------------------
 
+    def _local_rows(self, lo: int, hi: int) -> Tuple[int, int]:
+        """This process's rows of the global batch ``[lo, hi)``."""
+        s_lo, s_hi = self.stripe
+        return min(lo + s_lo, hi), min(lo + s_hi, hi)
+
     def _decode_batch(self, lo: int, hi: int,
                       pool: Optional[ThreadPoolExecutor]) -> Batch:
         size = self.image_size
-        s_lo, s_hi = self.stripe
-        local_lo = min(lo + s_lo, hi)   # this process's rows of the batch
-        local_hi = min(lo + s_hi, hi)
+        local_lo, local_hi = self._local_rows(lo, hi)
         paths = []
         labels = np.zeros((self.local_batch_size,), dtype=np.int32)
         for row, i in enumerate(range(local_lo, local_hi)):
@@ -166,7 +182,13 @@ class DataPipeline:
                         return
                     lo = b * self.batch_size
                     hi = min(lo + self.batch_size, n)
-                    q.put(("batch", self._decode_batch(lo, hi, pool)))
+                    local_lo, local_hi = self._local_rows(lo, hi)
+                    rows = local_hi - local_lo
+                    with self._span("pipeline.decode", batch=b, rows=rows):
+                        batch = self._decode_batch(lo, hi, pool)
+                    if self.telemetry is not None:
+                        self.telemetry.count("pipeline.rows", rows)
+                    q.put(("batch", batch))
                 q.put(("done", None))
             except BaseException as e:  # surface worker errors to consumer
                 q.put(("error", e))
@@ -178,13 +200,15 @@ class DataPipeline:
                                   name="mcm-pipeline-producer")
         thread.start()
         try:
-            while True:
-                kind, payload = q.get()
-                if kind == "done":
-                    return
+            for b in range(num_batches):
+                with self._span("pipeline.wait", batch=b):
+                    kind, payload = q.get()
                 if kind == "error":
                     raise payload
                 yield payload
+            kind, payload = q.get()   # "done", or the producer's error
+            if kind == "error":
+                raise payload
         finally:
             stop.set()
             # Drain AND join: draining frees a slot for a producer blocked

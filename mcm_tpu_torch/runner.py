@@ -351,17 +351,20 @@ def _encode_prompts(step: EvalStep, params, tokenizer, class_names,
 
 class _StreamReadback:
     """One-batch-behind host readback: batch i+1 is queued on the device
-    while batch i's result comes back."""
+    while batch i's result comes back.  Each ``readback`` span records the
+    batch read back and the last batch dispatched."""
 
     def __init__(self, telemetry: Optional[Telemetry] = None,
                  depth: int = 1):
         self._tel = telemetry or Telemetry()
         self._depth = depth
         self._pending: List[torch.Tensor] = []
+        self._pushed = 0
         self.out: List[np.ndarray] = []
 
     def push(self, device_value: torch.Tensor) -> None:
         self._pending.append(device_value)
+        self._pushed += 1
         self._drain(self._depth)
 
     def finish(self) -> List[np.ndarray]:
@@ -370,16 +373,17 @@ class _StreamReadback:
 
     def _drain(self, limit: int) -> None:
         while len(self._pending) > limit:
-            with self._tel.stage("readback"):
+            with self._tel.stage("readback", batch=len(self.out),
+                                 dispatched=self._pushed - 1):
                 self.out.append(to_host(self._pending.pop(0)))
 
 
-def _make_pipe(dataset, cfg: RunConfig,
-               drop_remainder: bool = False) -> DataPipeline:
+def _make_pipe(dataset, cfg: RunConfig, drop_remainder: bool = False,
+               telemetry: Optional[Telemetry] = None) -> DataPipeline:
     return DataPipeline(dataset, cfg.batch_size, image_size=cfg.image_size,
                         num_workers=cfg.num_workers, prefetch=cfg.prefetch,
                         drop_remainder=drop_remainder,
-                        fast_decode=cfg.fast_decode)
+                        fast_decode=cfg.fast_decode, telemetry=telemetry)
 
 
 def decoder_route(cfg: RunConfig) -> str:
@@ -403,14 +407,14 @@ def _stream_pass(step, dispatch, dataset, cfg: RunConfig,
     one-batch-behind readback → dataset-order assembly, gathered over the
     ranks).  ``dispatch(images)`` is the per-batch device call."""
     tel = telemetry or Telemetry()
-    pipe = _make_pipe(dataset, cfg, drop_remainder)
+    pipe = _make_pipe(dataset, cfg, drop_remainder, tel)
     stream = _StreamReadback(tel)
     valids: List[int] = []
     labels: List[np.ndarray] = []
-    for batch in pipe:
-        with tel.stage("h2d"):
+    for b, batch in enumerate(pipe):
+        with tel.stage("h2d", batch=b):
             images = step.put_batch(batch.images)
-        with tel.stage("dispatch"):
+        with tel.stage("dispatch", batch=b):
             out = dispatch(images)
         stream.push(out)  # drains the previous batch under stage("readback")
         valids.append(batch.valid)
@@ -606,7 +610,7 @@ def _id_features_cached(step, get_params, val_ds, cfg: RunConfig, log,
             log.debug(f"resume: loaded cached ID features for "
                       f"{cfg.in_dataset}")
             return data["features"], data["labels"]
-    with maybe_profile(cfg.trace_dir):
+    with maybe_profile(cfg.trace_dir, telemetry):
         feats, labels = extract_features(step, get_params(), val_ds, cfg,
                                          telemetry)
     if multihost.process_index() == 0:
@@ -862,7 +866,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
         if writer:
             save_scores(cfg.log_directory, f"ID_{cfg.in_dataset}", in_score)
     else:
-        with maybe_profile(cfg.trace_dir):
+        with maybe_profile(cfg.trace_dir, telemetry):
             in_score = scores_for(val_ds, f"ID_{cfg.in_dataset}", True)
         if cfg.eval_accuracy:
             if cfg.score == "maha":
