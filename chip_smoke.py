@@ -23,7 +23,9 @@
    shootout's masked case);
    each bsd probe mode is held against its plain version; the packed bsd
    launch (``bsd_fused``) must be bit-identical to the split one; the MCM
-   score also runs C = 16000, B = 1 and 7, D = 768 and a zero (NaN) row.
+   score also runs C = 16000, B = 1 and 7, D = 768 and a zero (NaN) row;
+   the dense epilogue must be bit-equal to the plain chain in each mode at
+   ViT-L/14's and ViT-B/16's B = 512 sites, timed beside that chain.
 3. Decode phase: prints the decode route (``native_info()``: the native
    libjpeg decoder and the libjpeg it linked, Pillow's bundled copy on a
    host without a system libjpeg) and fails if it is PIL; holds the native
@@ -43,7 +45,11 @@
    tokenizer stand in for the missing vocab; a random-weights warning
    fails the phase).  Prints the seconds of the snapshot and of the
    conversion; asserts that every kernel of the path was launched (bsd: 12
-   per image batch; mcm: 1 per image batch), that every score is finite
+   per image batch; mcm: 1 per image batch; the dense epilogue: 72 per
+   image batch, 12 layers × 6 products with a bias, and 72 per prompt
+   batch of the text tower; every later run counts it too: 6 a layer of a
+   bf16 tower on the card, 4 beside the fused MLP, 8 at T = 2, none in
+   fp32 or under autograd), that every score is finite
    and that the CSV was written and that the log names the native
    decoder; then scores one batch through the math paths and bounds the
    difference; then the same command again on each decode route in turn,
@@ -202,7 +208,8 @@
    ViT-B/16 width and depth, B = 128, with ``MCM_BENCH_MLP=pallas`` and in
    turn each ``MCM_BENCH_ATTN`` of ``pallas``, ``pallas_mh``,
    ``pallas_batched`` and ``flash``: asserts 12 fused-MLP and 12 launches
-   of the knob's attention kernel per image batch (no bsd, one mcm), and
+   of the knob's attention kernel per image batch (no bsd, one mcm, 48
+   dense epilogues: q, k, v and o), and
    holds each setting's features on one batch against the default path's.
    Then the bench once with default knobs at B = 512 with the
    decode-included pass (native decode), and its row (``n_devices``: every
@@ -215,12 +222,14 @@
    own shapes (B = 512) with a shorter chain: no row may fail, and every
    kernel they reach must be launched.  Then the measurement tools:
    ``mfu_breakdown`` (one window; every variant must give a rate, and
-   ``full`` must launch 12 bsd and 1 MCM a batch), ``bsd_block_probe``
+   ``full`` must launch 12 bsd, 1 MCM and 72 dense epilogues a batch),
+   ``bsd_block_probe``
    (every row, bsd launched), ``check_pallas_mh`` (parity, one
    ``mh_attention`` launch a case), ``int8_probe``, ``h2d_probe`` (one
    round) and ``h2d_probe2`` (two rounds).
 6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line (its
-   ``launches``: bsd and MCM summed over the slice phase's CLI runs (the
+   ``launches``: bsd, MCM and the dense epilogue summed over the slice
+   phase's CLI runs (the
    decode-route runs included), training, serving (both replicas) and soak
    runs, every rank of the dp phase and the CLIP-Linear run on the
    two-rank checkpoint, the local dp phase's CLI runs, the knob kernels
@@ -338,9 +347,21 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 #: the libraries whose bf16 kernels run on tensor cores
 TENSOR_CORE_LIBS = ("bsd_attention", "bsd_probe", "split_attention",
                     "flash_attention", "fused_mlp")
-#: the libraries that must not spill: those and the MCM score's register
-#: tiles
-NO_SPILL_LIBS = TENSOR_CORE_LIBS + ("mcm_score",)
+#: the libraries that must not spill: those, the MCM score's register
+#: tiles and the dense epilogue's streaming loop
+NO_SPILL_LIBS = TENSOR_CORE_LIBS + ("mcm_score", "dense_epilogue")
+
+#: dense-epilogue launches a layer of a bf16 tower on the card: the
+#: products with a bias (q, k, v, o, fc1, fc2); 4 where the fused MLP takes
+#: fc1 and fc2; 8 at T = 2 (q, k, v and fc1 on each shard: o's and fc2's
+#: bias go into the sum of the partials).  None in fp32 or under autograd.
+EPI_LAYER, EPI_LAYER_FUSED_MLP, EPI_LAYER_TP2 = 6, 4, 8
+#: those of one ViT-B/16 image batch and of one prompt batch (every class
+#: list here fits one batch of 1024 prompts): 12 layers each; ViT-Linear
+#: adds its patch embedding and its head, which have a bias
+EPI_IMAGE = EPI_TEXT = 12 * EPI_LAYER
+EPI_VIT_IMAGE = 12 * EPI_LAYER + 2
+EPI_TP2_TOWER = 12 * EPI_LAYER_TP2
 
 
 def build() -> tuple:
@@ -513,6 +534,34 @@ def mlp_case(m, d, f, act, dtype, main_path: bool) -> dict:
             "bound_ms": bms, "bound_by": by, "launches_per_batch": 12}
 
 
+def dense_epilogue_case(rows, n, mode) -> dict:
+    """The dense epilogue on an fp32 product of ``rows`` × ``n``: its bits
+    against the plain chain's, and its time beside that chain's."""
+    from mcm_tpu_torch.ops import dense_epilogue as epi
+    gen = torch.Generator(device="cuda").manual_seed(rows + n)
+    acc = torch.randn((rows, n), generator=gen, device="cuda") * 3.0
+    b = torch.randn((n,), generator=gen, device="cuda") * 0.5
+    r = torch.randn((rows, n), generator=gen, device="cuda").bfloat16()
+    kw = {"bias_quick_gelu": {"act": "quick_gelu"},
+          "bias_residual": {"residual": r}}.get(mode, {})
+    before = epi.dense_epilogue.launches
+    got = epi.dense_epilogue(acc, b, **kw)
+    want = epi.epilogue_reference(acc, b, torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    check(epi.dense_epilogue.launches == before + 1,
+          f"dense_epilogue {(rows, n, mode)}: not one launch")
+    check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+          f"dense_epilogue {(rows, n, mode)}: not bit-equal to the plain chain")
+    nbytes = rows * n * (8 if mode == "bias_residual" else 6) + n * 4
+    bms, by = bound(nbytes, 0.0, torch.bfloat16)
+    return {"kernel": "dense_epilogue", "case": [rows, n, mode],
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "kernel_ms": cuda_ms(lambda: epi.dense_epilogue(acc, b, **kw)),
+            "plain_ms": cuda_ms(lambda: epi.epilogue_reference(
+                acc, b, torch.bfloat16, **kw), iters=10),
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
 SPLIT_KERNELS = {"pallas_attention": "pallas", "mh_attention": "pallas_mh",
                  "batched_attention": "pallas_batched"}
 #: the bench's attention knob runs: wrapper → MCM_BENCH_ATTN
@@ -669,6 +718,18 @@ def kernel_phase() -> dict:
         emit(row)
         if row["main_path_shape"]:
             main["fused_mlp"] = row
+    # ViT-L/14's and ViT-B/16's sites at B = 512: the plain chain is the
+    # PyTorch work the kernel replaced on the towers' path; L/14's fc1 is
+    # the summary's row
+    for rows, n, mode in ((512 * 257, 4096, "bias_quick_gelu"),
+                          (512 * 257, 1024, "bias"),
+                          (512 * 257, 1024, "bias_residual"),
+                          (512 * 197, 3072, "bias_quick_gelu"),
+                          (512 * 197, 768, "bias"),
+                          (512 * 197, 768, "bias_residual")):
+        row = dense_epilogue_case(rows, n, mode)
+        emit(row)
+        main.setdefault("dense_epilogue", row)
     for name in ATTN_KNOBS:
         # flash also runs S = 600, which JAX pads past 512 (its block loop,
         # on tensor cores in bf16), S = 17 and, below, S = 256 over 197
@@ -958,8 +1019,9 @@ def slice_phase(work: str) -> dict:
     npz = os.path.join(ckpt, "ViT-B-16.npz")
     check(os.path.exists(npz), f"the CLI did not cache its conversion at {npz}")
     _check_only(launches, {"bsd_attention": 12 * n_batches,
-                           "mcm_score": n_batches},
-                f"MCM run over {n_batches} image batches")
+                           "mcm_score": n_batches,
+                           "dense_epilogue": EPI_IMAGE * n_batches + EPI_TEXT},
+                f"MCM run over {n_batches} image batches and 1 prompt batch")
     log_dir = _log_dir(work, "ImageNet", "MCM", "chip_smoke")
     csv = os.path.join(log_dir, "chip_smoke.csv")
     check(os.path.exists(csv), f"no CSV at {csv}")
@@ -999,9 +1061,8 @@ def slice_phase(work: str) -> dict:
     routes, route_launches = decode_route_runs(work, data, ckpt, n_batches)
     out.update(routes)
     emit(out)
-    path = {"bsd_attention": launches["bsd_attention"]
-            + route_launches["bsd_attention"],
-            "mcm_score": launches["mcm_score"] + route_launches["mcm_score"]}
+    path = {k: launches[k] + route_launches[k]
+            for k in ("bsd_attention", "mcm_score", "dense_epilogue")}
     for fn in (maha_run, train_runs, odin_run, accuracy_resume_runs,
                vit_runs, serve_run, serve_mesh_run, soak_runs):
         for k, v in fn(work, data, ckpt).items():
@@ -1016,9 +1077,10 @@ def decode_route_runs(work: str, data: str, ckpt: str,
     ``--fast_decode``; each with the main run's launch counts and its route
     in the log; the native scores held within the slice's score tolerance
     of the PIL run's."""
-    want = {"bsd_attention": 12 * n_batches, "mcm_score": n_batches}
+    want = {"bsd_attention": 12 * n_batches, "mcm_score": n_batches,
+            "dense_epilogue": EPI_IMAGE * n_batches + EPI_TEXT}
     runs = {}
-    total = {"bsd_attention": 0, "mcm_score": 0}
+    total = {"bsd_attention": 0, "mcm_score": 0, "dense_epilogue": 0}
     for name, flags, env, prefix in [
             ("chip_smoke_pil", [], "1", "PIL ("),
             ("chip_smoke_native", [], None, "native ("),
@@ -1083,7 +1145,8 @@ def maha_run(work: str, data: str, ckpt: str) -> dict:
                "id": -(-MAHA_N_VAL // MAHA_BATCH),
                "ood_full": len(OOD_SETS) * (N_OOD // MAHA_BATCH)}
     n_batches = sum(batches.values())
-    _check_only(run["launches"], {"bsd_attention": 12 * n_batches},
+    _check_only(run["launches"], {"bsd_attention": 12 * n_batches,
+                                  "dense_epilogue": EPI_IMAGE * n_batches},
                 f"maha run over {batches} image batches")
     check(not [w for w in run["warnings"] if "rank-deficient" in w],
           f"maha run with N = {n_train} warned of a rank-deficient "
@@ -1123,7 +1186,8 @@ def maha_run(work: str, data: str, ckpt: str) -> dict:
           "loop_images_per_s": _loop_rate(log),
           "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
           "csv": open(csv).read().strip().splitlines()})
-    return {"bsd_attention": run["launches"]["bsd_attention"]}
+    return {k: run["launches"][k] for k in ("bsd_attention",
+                                            "dense_epilogue")}
 
 
 def odin_run(work: str, data: str, ckpt: str) -> dict:
@@ -1272,7 +1336,9 @@ def accuracy_resume_runs(work: str, data: str, ckpt: str) -> dict:
     id_b = -(-N_ID // BATCH)
     ood_b = len(OOD_SETS) * -(-N_OOD // BATCH)
     _check_only(run["launches"], {"bsd_attention": 12 * (id_b + ood_b),
-                                  "mcm_score": ood_b},
+                                  "mcm_score": ood_b,
+                                  "dense_epilogue": EPI_IMAGE * (id_b + ood_b)
+                                  + EPI_TEXT},
                 f"eval_accuracy run over {id_b} ID and {ood_b} OOD batches")
     log_dir = _log_dir(work, "ImageNet", "MCM", "chip_smoke_acc")
     log = _read_log(log_dir)
@@ -1318,8 +1384,8 @@ def accuracy_resume_runs(work: str, data: str, ckpt: str) -> dict:
           "cli_wall_s": resumed["cli_wall_s"],
           "allocated_before_bytes": base, "max_memory_allocated_bytes": peak,
           "model_bytes_bf16": model_bytes, "same_csv": True})
-    return {"bsd_attention": run["launches"]["bsd_attention"],
-            "mcm_score": run["launches"]["mcm_score"]}
+    return {k: run["launches"][k] for k in ("bsd_attention", "mcm_score",
+                                            "dense_epilogue")}
 
 
 def _write_odin_tree(root: str, seed: int = 2) -> None:
@@ -1355,7 +1421,8 @@ def vit_runs(work: str, data: str, ckpt: str) -> dict:
                          "--device", "cuda", "--name", "chip_smoke_msp"],
                   cli_main=msp_main)
     n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
-    _check_only(run["launches"], {"bsd_attention": vit_cfg.layers * n_batches},
+    _check_only(run["launches"], {"bsd_attention": vit_cfg.layers * n_batches,
+                                  "dense_epilogue": EPI_VIT_IMAGE * n_batches},
                 f"eval_msp run over {n_batches} image batches")
     log_dir = os.path.join(work, run["results"])
     with open(os.path.join(log_dir, "chip_smoke_msp.csv")) as f:
@@ -1398,7 +1465,8 @@ def vit_runs(work: str, data: str, ckpt: str) -> dict:
           "cli_wall_s": odin["cli_wall_s"],
           "max_memory_allocated_bytes": odin["max_memory_allocated_bytes"],
           **vit_odin_batch(odin_data, ckpt)})
-    return {"bsd_attention": run["launches"]["bsd_attention"]}
+    return {k: run["launches"][k] for k in ("bsd_attention",
+                                            "dense_epilogue")}
 
 
 def _vit_step(data: str, ckpt: str, **over) -> tuple:
@@ -1624,7 +1692,9 @@ def serve_run(work: str, data: str, ckpt: str) -> dict:
         layers = det.step.cfg.vision.layers
         _check_only(launches, {"bsd_attention": layers * (n_batches
                                                           + classify_chunks),
-                               "mcm_score": n_batches},
+                               "mcm_score": n_batches,
+                               "dense_epilogue": EPI_LAYER * layers * (
+                                   n_batches + classify_chunks)},
                     f"serving: {n_batches} batcher batches and "
                     f"{classify_chunks} classify batch")
 
@@ -1701,8 +1771,8 @@ def serve_run(work: str, data: str, ckpt: str) -> dict:
           "maha_classified": len(maha_imgs),
           "maha_max_classify_vs_score_delta": float(
               np.abs(maha_cls - maha).max())})
-    return {"bsd_attention": launches["bsd_attention"],
-            "mcm_score": launches["mcm_score"]}
+    return {k: launches[k] for k in ("bsd_attention", "mcm_score",
+                                     "dense_epilogue")}
 
 
 SERVE_MESH_BUCKETS = (2, 8, 64)
@@ -1849,11 +1919,13 @@ def serve_mesh_run(work: str, data: str, ckpt: str) -> dict:
     chunks = -(-N_MESH_IMAGES // SERVE_MESH_BUCKETS[-1])
     layers = two.step.cfg.vision.layers
     _check_only(launches, {"bsd_attention": 2 * layers * chunks,
-                           "mcm_score": 2 * chunks},
+                           "mcm_score": 2 * chunks,
+                           "dense_epilogue": 2 * EPI_LAYER * layers * chunks},
                 f"two replicas over {chunks} batches (per replica: "
                 f"{layers} bsd and 1 MCM a batch)")
     _check_only(launches1, {"bsd_attention": layers * chunks,
-                            "mcm_score": chunks},
+                            "mcm_score": chunks,
+                            "dense_epilogue": EPI_LAYER * layers * chunks},
                 f"one replica over {chunks} batches")
     bit_equal = bool(np.array_equal(s2, s1))
     err = np.abs(s2 - s1)
@@ -1874,7 +1946,9 @@ def serve_mesh_run(work: str, data: str, ckpt: str) -> dict:
     torch.cuda.synchronize()
     mb_launches = {k: fn.launches for k, fn in counters.items()}
     _check_only(mb_launches, {"bsd_attention": 2 * layers * mb.n_batches,
-                              "mcm_score": 2 * mb.n_batches},
+                              "mcm_score": 2 * mb.n_batches,
+                              "dense_epilogue": 2 * EPI_LAYER * layers
+                              * mb.n_batches},
                 f"the MicroBatcher's {mb.n_batches} batches on two replicas")
     mb_err = np.abs(batched - s1[:32])
     check(bool(np.all(mb_err <= SERVE_ATOL + SERVE_RTOL * np.abs(s1[:32]))),
@@ -1919,7 +1993,7 @@ def serve_mesh_run(work: str, data: str, ckpt: str) -> dict:
           "max_memory_allocated_bytes_both_detectors": peak,
           "http": dict(http, max_delta=float(http_err.max())), "card": card})
     return {k: launches[k] + mb_launches[k]
-            for k in ("bsd_attention", "mcm_score")}
+            for k in ("bsd_attention", "mcm_score", "dense_epilogue")}
 
 
 def soak_runs(work: str, data: str, ckpt: str) -> dict:
@@ -1930,7 +2004,7 @@ def soak_runs(work: str, data: str, ckpt: str) -> dict:
     other kernel."""
     from mcm_tpu_torch.tools import http_soak, serve_soak
     counters = _all_counters()
-    total = {"bsd_attention": 0, "mcm_score": 0}
+    total = {"bsd_attention": 0, "mcm_score": 0, "dense_epilogue": 0}
     rows = {}
     for tool in (serve_soak, http_soak):
         name = tool.__name__.rsplit(".", 1)[1]
@@ -1943,7 +2017,10 @@ def soak_runs(work: str, data: str, ckpt: str) -> dict:
         launches = {k: fn.launches for k, fn in counters.items()}
         m = launches["mcm_score"]
         check(m > 0, f"{name}: no MCM launch")
-        _check_only(launches, {"bsd_attention": 12 * m, "mcm_score": m}, name)
+        # the detector's 1000 prompts, encoded once as it is built
+        _check_only(launches, {"bsd_attention": 12 * m, "mcm_score": m,
+                               "dense_epilogue": EPI_IMAGE * m + EPI_TEXT},
+                    name)
         check(row["decoder"]["available"], f"{name} decoded through PIL")
         for k in total:
             total[k] += launches[k]
@@ -2156,7 +2233,9 @@ def finetune_run(work: str, data: str, ckpt: str) -> dict:
                                  "--finetune_ckpt", out))
     n_batches = -(-MAHA_N_VAL // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
     _check_only(ev["launches"], {"bsd_attention": 12 * n_batches,
-                                 "mcm_score": n_batches},
+                                 "mcm_score": n_batches,
+                                 "dense_epilogue": EPI_IMAGE * n_batches
+                                 + EPI_TEXT},
                 f"CLIP-Linear MCM run over {n_batches} image batches")
     log_dir = os.path.join(work, "results", "ImageNet10", "MCM",
                            f"CLIP-Linear_ViT-B/16_T_1_ID_{name}")
@@ -2187,8 +2266,8 @@ def finetune_run(work: str, data: str, ckpt: str) -> dict:
           "loop_images_per_s": _loop_rate(log),
           "max_memory_allocated_bytes": ev["max_memory_allocated_bytes"],
           "csv": open(csv).read().strip().splitlines()})
-    return {"bsd_attention": ev["launches"]["bsd_attention"],
-            "mcm_score": ev["launches"]["mcm_score"]}
+    return {k: ev["launches"][k] for k in ("bsd_attention", "mcm_score",
+                                           "dense_epilogue")}
 
 
 def step_compare(data: str, ckpt: str) -> dict:
@@ -2653,7 +2732,9 @@ def dp_train_phase(work: str) -> dict:
                                  "--finetune_ckpt", out))
     n_batches = -(-MAHA_N_VAL // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
     _check_only(ev["launches"], {"bsd_attention": 12 * n_batches,
-                                 "mcm_score": n_batches},
+                                 "mcm_score": n_batches,
+                                 "dense_epilogue": EPI_IMAGE * n_batches
+                                 + EPI_TEXT},
                 f"CLIP-Linear on the two-rank checkpoint, {n_batches} "
                 f"image batches")
     log_dir = os.path.join(work, "results", "ImageNet10", "MCM",
@@ -2691,8 +2772,8 @@ def dp_train_phase(work: str) -> dict:
                           "results": ev["results"],
                           "cli_wall_s": ev["cli_wall_s"]},
           "card": card})
-    return {"bsd_attention": ev["launches"]["bsd_attention"],
-            "mcm_score": ev["launches"]["mcm_score"]}
+    return {k: ev["launches"][k] for k in ("bsd_attention", "mcm_score",
+                                           "dense_epilogue")}
 
 
 def _score_files(log_dir: str, names) -> dict:
@@ -2740,14 +2821,16 @@ def dp_phase(work: str) -> dict:
     want = _score_files(single, ["ID_ImageNet", *OOD_SETS])
     with open(os.path.join(single, "chip_smoke.csv")) as f:
         want_csv = f.read()
-    total = {"bsd_attention": 0, "mcm_score": 0}
+    total = {"bsd_attention": 0, "mcm_score": 0, "dense_epilogue": 0}
     out = {"phase": "dp", "card": card}
 
     def mcm_launch(name, nproc, *flags):
         reports, wall = _launch_ranks(work, name, nproc, _cli_argv(
             data, ckpt, name, "--in_dataset", "ImageNet", "--score", "MCM",
             "-b", str(BATCH), "--n_devices", str(nproc), *flags))
-        per_rank = {"bsd_attention": 12 * n_batches, "mcm_score": n_batches}
+        # each rank encodes the prompts
+        per_rank = {"bsd_attention": 12 * n_batches, "mcm_score": n_batches,
+                    "dense_epilogue": EPI_IMAGE * n_batches + EPI_TEXT}
         for r in reports:
             _check_only(r["launches"], per_rank,
                         f"{name} rank {r['rank']} over {n_batches} image "
@@ -2802,9 +2885,12 @@ def dp_phase(work: str) -> dict:
     maha_batches = (-(-n_train // MAHA_BATCH) + -(-MAHA_N_VAL // MAHA_BATCH)
                     + len(OOD_SETS) * (N_OOD // MAHA_BATCH))
     for r in reports:
-        _check_only(r["launches"], {"bsd_attention": 12 * maha_batches},
+        _check_only(r["launches"], {"bsd_attention": 12 * maha_batches,
+                                    "dense_epilogue": EPI_IMAGE
+                                    * maha_batches},
                     f"{name} rank {r['rank']} over {maha_batches} batches")
-        total["bsd_attention"] += r["launches"]["bsd_attention"]
+        for k in ("bsd_attention", "dense_epilogue"):
+            total[k] += r["launches"][k]
     tail = N_OOD // MAHA_BATCH * MAHA_BATCH
     names = ["ID_ImageNet10", *OOD_SETS]
     single_maha = _log_dir(work, "ImageNet10", "maha", "chip_smoke_maha")
@@ -2831,12 +2917,13 @@ def dp_phase(work: str) -> dict:
 
 # -- 3d. local dp phase (after the dp train phase, on its weights and trees) --
 
-def _local_cli(work: str, model: str, per_batch: dict,
-               n_batches: int) -> dict:
+def _local_cli(work: str, model: str, per_batch: dict, n_batches: int,
+               per_run: dict) -> dict:
     """The eval CLI on ``model`` (MCM, ``-b 128``, the slice phase's tree
     and weights) on one device, then at ``--n_devices 2 --device cuda:0``
     (two replicas of card 0 in this process, each batch split 64 + 64):
-    each run's launches ``per_batch`` a batch and replica, the two-replica
+    each run's launches ``per_batch`` a batch and replica and ``per_run``
+    once (the first replica encodes the prompts), the two-replica
     scores within DP_RTOL / DP_ATOL of one device's (the largest difference
     printed, and whether they are bit-equal), the CSVs equal, the log
     naming the grid; both runs' walls and rates."""
@@ -2852,6 +2939,7 @@ def _local_cli(work: str, model: str, per_batch: dict,
             "--score", "MCM", "--n_devices", str(replicas), "--device",
             "cuda:0"))
         _check_only(run["launches"], {k: replicas * v * n_batches
+                                      + per_run.get(k, 0)
                                       for k, v in per_batch.items()},
                     f"{what} on {replicas} replica(s) of card 0, "
                     f"{n_batches} image batches (each replica a stripe of "
@@ -2897,10 +2985,15 @@ def local_dp_phase(work: str) -> dict:
     n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
     out = {"phase": "local_dp", "card": card, "device": "cuda:0",
            "replicas": 2, "batch": BATCH}
-    total = {"bsd_attention": 0, "mcm_score": 0}
-    for model, per_batch in (("CLIP", {"bsd_attention": 12, "mcm_score": 1}),
-                             ("vit-Linear", {"bsd_attention": 12})):
-        row = out[model] = _local_cli(work, model, per_batch, n_batches)
+    total = {"bsd_attention": 0, "mcm_score": 0, "dense_epilogue": 0}
+    for model, per_batch, per_run in (
+            ("CLIP", {"bsd_attention": 12, "mcm_score": 1,
+                      "dense_epilogue": EPI_IMAGE},
+             {"dense_epilogue": EPI_TEXT}),
+            ("vit-Linear", {"bsd_attention": 12,
+                            "dense_epilogue": EPI_VIT_IMAGE}, {})):
+        row = out[model] = _local_cli(work, model, per_batch, n_batches,
+                                      per_run)
         one, two = row["one_device"], row["two_replicas"]
         for run in (one, two):
             for k in total:
@@ -3031,7 +3124,8 @@ def _tp_batch_times(data: str, ckpt: str, precision: str, batch: int,
                     score: str = "MCM") -> dict:
     """One batch at T = 1 and T = 2 on card 0 under ``precision``: the
     scores held to each other, the device ms of a batch, the peak memory
-    of the model and a batch, and the launches of the T = 2 batch (none)."""
+    of the model and a batch, and the launches of the T = 2 batch (the
+    dense epilogue's alone, in fast)."""
     import gc
     counters = _all_counters()
     out, scores = {}, {}
@@ -3049,7 +3143,11 @@ def _tp_batch_times(data: str, ckpt: str, precision: str, batch: int,
         torch.cuda.synchronize()
         launches = {n: fn.launches for n, fn in counters.items()}
         if tp == 2:
-            _check_only(launches, {}, f"T = 2 {score} batch ({precision})")
+            # fp32 (parity, and ODIN's policy) launches nothing
+            dense = (EPI_TP2_TOWER if precision == "fast" and score != "odin"
+                     else 0)
+            _check_only(launches, {"dense_epilogue": dense},
+                        f"T = 2 {score} batch ({precision})")
         out[f"tp{tp}"] = {
             "batch_ms": cuda_ms(lambda: step.score(params, images, text),
                                 iters=3 if score == "odin" else 10,
@@ -3193,7 +3291,11 @@ def tp_phase(work: str) -> dict:
         "launches_tp1": one["launches"]}
     check(two_csv == one_csv, "T = 2 parity: the CSV differs from T = 1's")
     fast, fast_dir, fast_csv = cli("tp2_fast", *TP_FLAGS)
-    _check_only(fast["launches"], {}, "the T = 2 fast CLI run")
+    n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
+    _check_only(fast["launches"], {"dense_epilogue": EPI_TP2_TOWER
+                                   * (n_batches + 1)},
+                f"the T = 2 fast CLI run over {n_batches} image batches and "
+                f"1 prompt batch")
     single = _log_dir(work, "ImageNet", "MCM", "chip_smoke")
     got, want = _score_files(fast_dir, names), _score_files(single, names)
     with open(os.path.join(single, "chip_smoke.csv")) as f:
@@ -3265,8 +3367,10 @@ def tp_phase(work: str) -> dict:
     s_tp = det.score_images(images)
     torch.cuda.synchronize()
     tp_s = time.perf_counter() - t
-    _check_only({n: fn.launches for n, fn in counters.items()}, {},
-                "the data 2 × model 2 detector")
+    chunks = -(-len(images) // SERVE_MESH_BUCKETS[-1])
+    _check_only({n: fn.launches for n, fn in counters.items()},
+                {"dense_epilogue": 2 * EPI_TP2_TOWER * chunks},
+                f"the data 2 × model 2 detector over {chunks} batches")
     s_one = dets["one"].score_images(images)
     with MicroBatcher(det, max_wait_ms=5) as mb:
         futs = [mb.submit(img) for img in images[:16]]
@@ -3341,9 +3445,10 @@ def tp_phase(work: str) -> dict:
 
 
 def _counters() -> dict:
-    from mcm_tpu_torch.ops import attention, mcm_score, mlp
+    from mcm_tpu_torch.ops import attention, dense_epilogue, mcm_score, mlp
     return {"bsd_attention": attention.bsd_attention,
             "mcm_score": mcm_score.mcm_score, "fused_mlp": mlp.fused_mlp,
+            "dense_epilogue": dense_epilogue.dense_epilogue,
             **{n: getattr(attention, n) for n in ATTN_KNOBS}}
 
 
@@ -3395,7 +3500,9 @@ def bench_phase() -> dict:
                                   * bench.WINDOWS * bench.ITERS_PER_WINDOW)
         want = {n: 0 for n in launches}
         want.update({"fused_mlp": layers * batches, name: layers * batches,
-                     "mcm_score": batches})
+                     "mcm_score": batches,
+                     "dense_epilogue": EPI_LAYER_FUSED_MLP * layers
+                     * batches})
         check(launches == want, f"bench with MCM_BENCH_ATTN={attn}: launches "
               f"{launches}, want {want} for {batches} image batches")
         path_launches["fused_mlp"] += launches["fused_mlp"]
@@ -3439,8 +3546,11 @@ def bench_phase() -> dict:
                                 "MCM_BENCH_SCALES": "0"})
     check(launches["mcm_score"] > 0
           and launches["bsd_attention"] == layers * launches["mcm_score"]
+          and launches["dense_epilogue"] == EPI_LAYER
+          * launches["bsd_attention"]
           and all(launches[n] == 0 for n in ("fused_mlp", *ATTN_KNOBS)),
-          f"default bench launches {launches}: want 12 bsd per mcm, no other")
+          f"default bench launches {launches}: want 12 bsd and 72 dense "
+          f"epilogues per mcm, no other")
     check(all(row[k] and row[k] > 0 for k in (
         "value", "e2e_img_per_sec", "e2e_decode_img_per_sec",
         "e2e_transfer_ceiling_img_per_sec")),
@@ -3551,9 +3661,12 @@ def measurement_tools() -> dict:
         f"mfu_breakdown: variants failed: {row['failed']}")
     full = row["variants"]["full"]
     check(full["launches"] == {"bsd_attention": layers * full["batches"],
-                               "mcm_score": full["batches"]},
+                               "mcm_score": full["batches"],
+                               "dense_epilogue": EPI_LAYER * layers
+                               * full["batches"]},
           f"mfu_breakdown full: launches {full['launches']} over "
-          f"{full['batches']} batches, want {layers} bsd and 1 MCM a batch")
+          f"{full['batches']} batches, want {layers} bsd, 1 MCM and "
+          f"{EPI_LAYER * layers} dense epilogues a batch")
     print(f"mfu_breakdown B = {row['batch']}: full "
           f"{row['full_ms_per_batch']:.2f} ms a batch; deltas "
           + ", ".join(f"{m} {v:.2f}" for m, v in row["deltas_ms"].items())
@@ -3612,6 +3725,8 @@ KERNELS = {
                   "tools/bsd_probe.py:92"),
     "bsd_attention_packed": ("cuda", "mcm_tpu_torch/csrc/bsd_attention.cu",
                              "tools/qkv_probe.py:93"),
+    "dense_epilogue": ("cuda", "mcm_tpu_torch/csrc/dense_epilogue.cu",
+                       "none, XLA fusion"),
 }
 
 

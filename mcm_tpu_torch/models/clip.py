@@ -14,7 +14,10 @@ The model state is :class:`CLIP`, an ``nn.Module`` whose ``vision`` and
 plain functions on tensors.  Numerics follow the JAX package: QuickGELU,
 LayerNorm in fp32, every product accumulated in fp32
 (:func:`mcm_tpu_torch.ops.numerics.matmul_f32`), activations in
-``precision.activation_dtype``.
+``precision.activation_dtype``.  What follows a product with a bias (the
+bias add, the rounding, QuickGELU or the residual add) runs on the card
+as one kernel (:mod:`mcm_tpu_torch.ops.dense_epilogue`) with the same
+roundings.
 
 ``precision.mlp_impl == "pallas"`` routes each layer's MLP, in both
 towers, through the fused MLP kernel (:func:`mcm_tpu_torch.ops.mlp.fused_mlp`)
@@ -33,9 +36,10 @@ import torch
 from torch import nn
 
 from mcm_tpu_torch.config import Precision, TextConfig, VisionConfig
+from mcm_tpu_torch.ops import dense_epilogue as epi
 from mcm_tpu_torch.ops.attention import encoder_attention
 from mcm_tpu_torch.ops.mlp import fused_mlp
-from mcm_tpu_torch.ops.numerics import matmul_f32, weak_scalar
+from mcm_tpu_torch.ops.numerics import matmul_f32
 
 #: leaves the forward casts to the compute dtype, so they are stored in it;
 #: LayerNorm parameters and biases are used in fp32 and stay fp32
@@ -91,20 +95,24 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    """OpenAI CLIP activation: x * sigmoid(1.702 x) (not tanh-GELU)."""
-    return x * torch.sigmoid(x * weak_scalar(1.702, x.dtype))
-
-
 def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-           precision: Precision) -> torch.Tensor:
+           precision: Precision, *, act: Optional[str] = None,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ w + b with fp32 accumulation and an fp32 bias add, output in
-    the compute dtype."""
+    the compute dtype; then ``quick_gelu(y)`` for ``act="quick_gelu"``, or
+    ``residual + y``.  The epilogue after the product runs as one kernel
+    where :func:`~mcm_tpu_torch.ops.dense_epilogue.takes_kernel` allows,
+    else as the plain chain: the same numbers either way.
+    ``_dense.plain`` counts the calls that took the plain chain."""
     cdt = precision.activation_dtype
     y = matmul_f32(x.to(cdt), w.to(cdt))
-    if b is not None:
-        y = y + b.float()
-    return y.to(cdt)
+    if epi.takes_kernel(y, b, cdt, residual):
+        return epi.dense_epilogue(y, b.float(), act=act, residual=residual)
+    _dense.plain += 1
+    return epi.epilogue_reference(y, b, cdt, act, residual)
+
+
+_dense.plain = 0
 
 
 def _unstack(layers: nn.Module) -> list:
@@ -130,7 +138,7 @@ def transformer_block(x: torch.Tensor, layer: Dict[str, Any], *, heads: int,
     v = _dense(h, attn["wv"], attn["bv"], precision)
     a = encoder_attention(q, k, v, heads=heads, mask=mask,
                           precision=precision)
-    x = x + _dense(a, attn["wo"], attn["bo"], precision)
+    x = _dense(a, attn["wo"], attn["bo"], precision, residual=x)
 
     h = layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"], eps)
     if precision.mlp_impl == "pallas":
@@ -139,8 +147,8 @@ def transformer_block(x: torch.Tensor, layer: Dict[str, Any], *, heads: int,
         h = fused_mlp(h.reshape(b * s, d), mlp["w1"].to(cdt), mlp["b1"],
                       mlp["w2"].to(cdt), mlp["b2"]).reshape(b, s, d)
         return x + h
-    h = quick_gelu(_dense(h, mlp["w1"], mlp["b1"], precision))
-    return x + _dense(h, mlp["w2"], mlp["b2"], precision)
+    h = _dense(h, mlp["w1"], mlp["b1"], precision, act="quick_gelu")
+    return _dense(h, mlp["w2"], mlp["b2"], precision, residual=x)
 
 
 def run_transformer(x: torch.Tensor, layers: nn.Module, *, heads: int,

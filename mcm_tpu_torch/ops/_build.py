@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "mcm_tpu_torch")
 
 #: every kernel source of the port
 SOURCES = ("bsd_attention", "mcm_score", "fused_mlp", "split_attention",
-           "flash_attention", "bsd_probe")
+           "flash_attention", "bsd_probe", "dense_epilogue")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -171,5 +171,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mcm_bsd_probe.restype = i
         lib.mcm_bsd_probe_error_string.argtypes = [i]
         lib.mcm_bsd_probe_error_string.restype = ctypes.c_char_p
+    elif name == "dense_epilogue":
+        lib.mcm_dense_epilogue.argtypes = [p, p, p, p, ll, ll, i, p]
+        lib.mcm_dense_epilogue.restype = i
+        lib.mcm_dense_epilogue_error_string.argtypes = [i]
+        lib.mcm_dense_epilogue_error_string.restype = ctypes.c_char_p
     else:
         raise ValueError(f"unknown kernel source {name!r}")

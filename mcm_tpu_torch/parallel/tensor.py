@@ -43,7 +43,7 @@ from torch import nn
 from mcm_tpu_torch.config import Precision, TextConfig, VisionConfig
 from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models.clip import (CLIP, ParamTree, _dense, _text_mask,
-                                       layer_norm, patchify, quick_gelu)
+                                       layer_norm, patchify)
 from mcm_tpu_torch.models.convert import to_jax_params
 from mcm_tpu_torch.ops.attention import encoder_attention
 from mcm_tpu_torch.ops.numerics import matmul_f32
@@ -152,8 +152,8 @@ def transformer_block(x: torch.Tensor, shard_layers: Sequence[Dict],
     partials = []
     for layer in shard_layers:
         mlp = layer["mlp"]
-        g = quick_gelu(_dense(h.to(mlp["w1"].device), mlp["w1"], mlp["b1"],
-                              precision))
+        g = _dense(h.to(mlp["w1"].device), mlp["w1"], mlp["b1"], precision,
+                   act="quick_gelu")
         partials.append(matmul_f32(g.to(cdt), mlp["w2"].to(cdt)))
     return x + _reduce(partials, lead["mlp"]["b2"], x.device, cdt)
 

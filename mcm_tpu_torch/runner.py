@@ -42,6 +42,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -61,10 +62,12 @@ from mcm_tpu_torch.data import (DataPipeline, default_out_datasets,
                                 set_train_loader, set_val_loader,
                                 validate_out_datasets)
 from mcm_tpu_torch.metrics import get_and_print_results, print_measures
+from mcm_tpu_torch.models.clip import _dense
 from mcm_tpu_torch.models.convert import (file_identity, load_params,
                                           resolve_clip_params,
                                           resolve_clip_weight_source)
 from mcm_tpu_torch.models.init import init_clip
+from mcm_tpu_torch.ops.dense_epilogue import dense_epilogue
 from mcm_tpu_torch.parallel import EvalStep, VitLinearStep, multihost
 from mcm_tpu_torch.parallel.eval_step import Replicated, to_host
 from mcm_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
@@ -399,6 +402,19 @@ def decoder_route(cfg: RunConfig) -> str:
     return f"decoder: PIL ({info['reason']})"
 
 
+@contextlib.contextmanager
+def _dense_counts(tel: Telemetry):
+    """Adds the towers' dense epilogues launched (``towers.dense_epilogue``)
+    and plain chains run (``towers.dense_plain``) inside the block to
+    ``tel``'s counters."""
+    launched, plain = dense_epilogue.launches, _dense.plain
+    try:
+        yield
+    finally:
+        tel.count("towers.dense_epilogue", dense_epilogue.launches - launched)
+        tel.count("towers.dense_plain", _dense.plain - plain)
+
+
 def _stream_pass(step, dispatch, dataset, cfg: RunConfig,
                  telemetry: Optional[Telemetry] = None,
                  drop_remainder: bool = False,
@@ -411,16 +427,17 @@ def _stream_pass(step, dispatch, dataset, cfg: RunConfig,
     stream = _StreamReadback(tel)
     valids: List[int] = []
     labels: List[np.ndarray] = []
-    for b, batch in enumerate(pipe):
-        with tel.stage("h2d", batch=b):
-            images = step.put_batch(batch.images)
-        with tel.stage("dispatch", batch=b):
-            out = dispatch(images)
-        stream.push(out)  # drains the previous batch under stage("readback")
-        valids.append(batch.valid)
-        if collect_labels:
-            labels.append(batch.labels)
-        tel.add_images(batch.valid)
+    with _dense_counts(tel):
+        for b, batch in enumerate(pipe):
+            with tel.stage("h2d", batch=b):
+                images = step.put_batch(batch.images)
+            with tel.stage("dispatch", batch=b):
+                out = dispatch(images)
+            stream.push(out)  # drains the previous batch under "readback"
+            valids.append(batch.valid)
+            if collect_labels:
+                labels.append(batch.labels)
+            tel.add_images(batch.valid)
     total = (len(pipe) * cfg.batch_size if drop_remainder
              else pipe.num_samples)
     total = min(total, sum(valids)) if valids else 0
@@ -797,9 +814,10 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
             if "host" in _text:
                 _text["dev"] = step.put_replicated(_text["host"])
             else:
-                _text["dev"] = _encode_prompts(step, dev_params(),
-                                               tokenizer, test_labels,
-                                               cfg.template_ensemble)
+                with _dense_counts(telemetry):
+                    _text["dev"] = _encode_prompts(step, dev_params(),
+                                                   tokenizer, test_labels,
+                                                   cfg.template_ensemble)
         return _text["dev"]
 
     def text_host():

@@ -55,7 +55,7 @@ VARIANTS = (("full", None), ("attn_xla", "xla"), ("attn_core", None),
 def make_block(mode: str):
     """An ablated clone of ``models.clip.transformer_block`` (timing only);
     ``"full"`` computes the production block's unfused-MLP path."""
-    from mcm_tpu_torch.models.clip import _dense, layer_norm, quick_gelu
+    from mcm_tpu_torch.models.clip import _dense, layer_norm
     from mcm_tpu_torch.ops.attention import encoder_attention
 
     def ln(x, scale, bias, eps):
@@ -75,21 +75,22 @@ def make_block(mode: str):
             else:
                 a = encoder_attention(q, k, v, heads=heads, mask=mask,
                                       precision=precision)
-            x = x + _dense(a, attn["wo"], attn["bo"], precision)
+            x = _dense(a, attn["wo"], attn["bo"], precision, residual=x)
         if mode != "no_mlp":
             mlp = layer["mlp"]
             h = ln(x, layer["ln2"]["scale"], layer["ln2"]["bias"], eps)
-            h = quick_gelu(_dense(h, mlp["w1"], mlp["b1"], precision))
-            x = x + _dense(h, mlp["w2"], mlp["b2"], precision)
+            h = _dense(h, mlp["w1"], mlp["b1"], precision, act="quick_gelu")
+            x = _dense(h, mlp["w2"], mlp["b2"], precision, residual=x)
         return x
 
     return block
 
 
 def _launch_counters() -> dict:
-    from mcm_tpu_torch.ops import attention, mcm_score
+    from mcm_tpu_torch.ops import attention, dense_epilogue, mcm_score
     return {"bsd_attention": attention.bsd_attention,
-            "mcm_score": mcm_score.mcm_score}
+            "mcm_score": mcm_score.mcm_score,
+            "dense_epilogue": dense_epilogue.dense_epilogue}
 
 
 def time_variant(mode: str, attn_impl: Optional[str] = None,

@@ -149,6 +149,9 @@ class Telemetry:
         if wait_s is not None and self.loop_wall > 0:
             lines.append(f"  queue wait: {wait_s:.3f}s "
                          f"({100 * wait_s / self.loop_wall:.1f}% of the loop)")
+        if self.counters:
+            lines.append("  counters: " + ", ".join(
+                f"{name} {n}" for name, n in sorted(self.counters.items())))
         return "\n".join(lines)
 
 

@@ -1,10 +1,13 @@
 """The kernel build's library names (``mcm_tpu_torch/ops/_build.py``) on
 the CPU, no ``nvcc`` needed: a library is named by its source, every
 ``csrc`` header the source includes and the flags, so an edited header
-rebuilds every library that includes it and no other."""
+rebuilds every library that includes it and no other.  Every source's
+exported functions get their ctypes argument and result types."""
 
+import ctypes
 import os
 import shutil
+import types
 
 import pytest
 
@@ -39,6 +42,7 @@ def test_inputs_follow_includes_through_headers():
         "flash_attention.cu", "attention_common.cuh", "attention_mma.cuh"]
     assert _build._inputs("mcm_score") == ["mcm_score.cu"]
     assert _build._inputs("fused_mlp") == ["fused_mlp.cu"]
+    assert _build._inputs("dense_epilogue") == ["dense_epilogue.cu"]
 
 
 @pytest.mark.parametrize("header,changed", [
@@ -64,3 +68,41 @@ def test_source_edit_changes_only_its_library(csrc):
     after = {n: _build._lib_path(n) for n in _build.SOURCES}
     assert {n for n in _build.SOURCES if before[n] != after[n]} == {
         "flash_attention"}
+
+
+class _Lib:
+    """Stands in for a loaded library: each attribute read is a function
+    object that ``_declare`` sets types on."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, types.SimpleNamespace())
+
+
+@pytest.mark.parametrize("name", _build.SOURCES)
+def test_declare_types_every_source(name):
+    lib = _Lib()
+    _build._declare(name, lib)
+    errors = [f for f in lib.fns if f.endswith("_error_string")]
+    assert len(errors) == 1
+    assert lib.fns[errors[0]].restype is ctypes.c_char_p
+    assert len(lib.fns) >= 2
+    for fn in lib.fns.values():
+        assert fn.restype is not None
+        assert all(t in (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float) for t in fn.argtypes)
+
+
+def test_declare_dense_epilogue_passes_pointers_and_64_bit_sizes():
+    lib = _Lib()
+    _build._declare("dense_epilogue", lib)
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    assert lib.fns["mcm_dense_epilogue"].argtypes == [p, p, p, p, ll, ll, i, p]
+    assert lib.fns["mcm_dense_epilogue"].restype is i
+
+
+def test_declare_refuses_an_unknown_source():
+    with pytest.raises(ValueError, match="unknown kernel source"):
+        _build._declare("nope", _Lib())

@@ -39,7 +39,10 @@ kernel, but checked on
 the card's host: the native JPEG decoder builds, loads and passes its
 self-test there.  Tensor parallelism: two shards of card 0 score as one
 device does (parity at rtol 1e-4 / atol 1e-5, fast at 5e-3 / 5e-4),
-launch no kernel, and refuse a forced one.
+launch no kernel, and refuse a forced one.  The dense epilogue has no
+tolerance: bit-equality.  Each mode's bf16 output has the bits of the plain
+chain's on the same fp32 product, and ViT-L/14's features with the kernel
+those without it.
 """
 
 import dataclasses
@@ -1243,3 +1246,124 @@ def test_vit_linear_step_on_two_replicas_matches_one_device(cuda):
     assert n1 == 2 * cfg.layers and n2 == 2 * 2 * cfg.layers
     np.testing.assert_allclose(f2, f1, rtol=5e-3, atol=5e-4)
     np.testing.assert_allclose(s2, s1, rtol=5e-3, atol=5e-4)
+
+
+# -- dense epilogue: bit-equal to the plain chain --------------------------------
+
+#: (rows, N): ViT-L/14 at B = 512 (q/k/v/o and fc2 at 1024, fc1 at 4096),
+#: ViT-B/16 at B = 512 (768, 3072), the text tower of B/16 on 1,000 prompts
+#: of 77 tokens (512, 2048), widths that end in a part of a 256-column tile
+#: (1000, 12), and widths that take the scalar kernel (771, 1)
+_EPI_SHAPES = [(512 * 257, 1024), (512 * 257, 4096), (512 * 197, 768),
+               (512 * 197, 3072), (1000 * 77, 512), (1000 * 77, 2048),
+               (37, 1000), (5, 12), (37, 771), (3, 1)]
+
+
+def _epi_operands(rows, n, device, seed=0):
+    """An fp32 product of a few units, an fp32 bias, a bf16 residual; the
+    first row holds both tails of QuickGELU (expf overflows at -1e4)."""
+    gen = torch.Generator(device=device).manual_seed(seed + rows + n)
+    acc = torch.randn((rows, n), generator=gen, device=device) * 3.0
+    special = torch.tensor([-1e4, -100.0, -20.0, -5.0, -0.5, 0.0, 0.5, 5.0,
+                            20.0, 100.0, 1e4], device=device)
+    k = min(n, special.numel())
+    acc[0, :k] = special[:k]
+    b = torch.randn((n,), generator=gen, device=device) * 0.5
+    r = torch.randn((rows, n), generator=gen, device=device).bfloat16()
+    return acc, b, r
+
+
+def _bits_equal(got, want):
+    return got.dtype == want.dtype and torch.equal(got.view(torch.int16),
+                                                   want.view(torch.int16))
+
+
+@pytest.mark.parametrize("mode", ["bias", "bias_quick_gelu", "bias_residual"])
+@pytest.mark.parametrize("rows,n", _EPI_SHAPES)
+def test_dense_epilogue_is_bit_equal_to_the_plain_chain(cuda, rows, n, mode):
+    from mcm_tpu_torch.ops import dense_epilogue as epi
+    acc, b, r = _epi_operands(rows, n, cuda)
+    kw = {"bias_quick_gelu": {"act": "quick_gelu"},
+          "bias_residual": {"residual": r}}.get(mode, {})
+    before = epi.dense_epilogue.launches
+    got = epi.dense_epilogue(acc, b, **kw)
+    torch.cuda.synchronize()
+    assert epi.dense_epilogue.launches == before + 1
+    want = epi.epilogue_reference(acc, b, torch.bfloat16, **kw)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["bias", "bias_quick_gelu", "bias_residual"])
+def test_dense_epilogue_off_16_byte_alignment(cuda, mode):
+    """A product that starts 4 bytes into its storage takes the scalar
+    kernel at a width of 1024, with the same bits."""
+    from mcm_tpu_torch.ops import dense_epilogue as epi
+    acc, b, r = _epi_operands(64, 1024, cuda, seed=1)
+    shifted = torch.empty(acc.numel() + 1, device=cuda)[1:].view(acc.shape)
+    shifted.copy_(acc)
+    assert shifted.data_ptr() % 16 != 0
+    kw = {"bias_quick_gelu": {"act": "quick_gelu"},
+          "bias_residual": {"residual": r}}.get(mode, {})
+    got = epi.dense_epilogue(shifted, b, **kw)
+    assert _bits_equal(got, epi.epilogue_reference(acc, b, torch.bfloat16,
+                                                   **kw))
+
+
+@pytest.mark.parametrize("bad", ["non-contiguous residual",
+                                 "residual of another dtype"])
+def test_dense_raises_where_the_kernel_cannot_take_its_inputs(cuda, bad):
+    """On the card a bf16 ``_dense`` with a bias is the kernel's route; a
+    residual the kernel cannot read raises there instead of falling back
+    to the plain chain."""
+    from mcm_tpu_torch.models import clip as tclip
+    from mcm_tpu_torch.ops import dense_epilogue as epi
+
+    x = torch.randn((4, 8, 32), device=cuda).bfloat16()
+    w = torch.randn((32, 16), device=cuda).bfloat16()
+    b = torch.randn((16,), device=cuda)
+    r = (torch.randn((4, 8, 32), device=cuda).bfloat16()[..., ::2]
+         if bad == "non-contiguous residual"
+         else torch.randn((4, 8, 16), device=cuda))
+    launched, plain = epi.dense_epilogue.launches, tclip._dense.plain
+    with pytest.raises(ValueError):
+        tclip._dense(x, w, b, Precision.fast(), residual=r)
+    assert (epi.dense_epilogue.launches, tclip._dense.plain) == (launched,
+                                                                 plain)
+
+
+def test_l14_tower_is_bit_equal_with_and_without_the_epilogue(cuda,
+                                                              monkeypatch):
+    """``encode_image`` at ViT-L/14, B = 8, fast: the features with the
+    route on equal those with it off to the bit, and the tower launches
+    the epilogue 144 times (24 layers × 6 products with a bias) and takes
+    the plain chain twice (``patch_embed``, ``proj``)."""
+    from mcm_tpu_torch.config import CLIP_CONFIGS
+    from mcm_tpu_torch.models import clip as tclip
+    from mcm_tpu_torch.models.init import init_vision
+    from mcm_tpu_torch.ops import dense_epilogue as epi
+
+    cfg = CLIP_CONFIGS["ViT-L/14"]().vision
+    tree = init_vision(0, cfg)
+    rng = np.random.default_rng(2)
+    for group in tree["layers"].values():
+        for name in group:
+            if name.startswith("b"):
+                group[name] = (0.1 * rng.standard_normal(
+                    group[name].shape)).astype(np.float32)
+    params = tclip.ParamTree({"vision": tree}, cuda, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal(
+        (8, cfg.image_size, cfg.image_size, 3)).astype(np.float32)).to(cuda)
+    fast = Precision.fast()
+    def totals():
+        return epi.dense_epilogue.launches, tclip._dense.plain
+
+    with torch.no_grad():
+        launched, plain = totals()
+        got = tclip.encode_image(params, cfg, x, fast)
+        torch.cuda.synchronize()
+        assert totals() == (launched + 144, plain + 2)
+        monkeypatch.setattr(epi, "takes_kernel", lambda *a, **k: False)
+        want = tclip.encode_image(params, cfg, x, fast)
+        assert totals() == (launched + 144, plain + 2 + 146)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _bits_equal(got, want)

@@ -146,7 +146,8 @@ def test_every_variant_times_on_the_cpu(monkeypatch, capsys):
     assert list(row["variants"]) == list(MODES) and not row["failed"]
     for v in row["variants"].values():
         assert v["img_per_s"] > 0 and v["batches"] == 3
-        assert v["launches"] == {"bsd_attention": 0, "mcm_score": 0}
+        assert v["launches"] == {"bsd_attention": 0, "mcm_score": 0,
+                                 "dense_epilogue": 0}
     assert row["full_ms_per_batch"] == row["variants"]["full"]["ms_per_batch"]
     assert list(row["deltas_ms"]) == list(MODES[1:])
     assert '"deltas_ms"' in capsys.readouterr().out
