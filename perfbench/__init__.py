@@ -10,6 +10,7 @@ its traffic mix (``traffic/<name>.json``, whose ``driver`` names a module
 of ``drivers/``); ``workloads/<cell>.json`` holds what belongs to the cell
 alone (a serving rate, the limits of its output check); each per-layer
 metric is a reader ``metrics/<name>.py``.  The plain reference that
-decides ``correct`` lives in ``reference/`` and imports nothing of the
+decides ``correct`` is the module that the configuration's ``reference``
+key names (``reference/clip.py`` for CLIP); it imports nothing of the
 program.  Nothing here imports ``jax`` or the JAX package.
 """

@@ -1,6 +1,7 @@
 """The control of a cell's output check: the reference put in the
 program's place, one precision step below the configuration's bfloat16
-(every dense product in float8 e4m3), scored by the cell's own comparison.
+(every dense product in float8 e4m3), scored by the cell's own comparison
+against the reference that the configuration names.
 It has to come out not correct.
 
     python3 perfbench/control.py --workload <cell> --seeds 11,12,13
@@ -24,9 +25,10 @@ if ROOT not in sys.path:
 
 def control_gap(cell, seed: int, device: str, gemm: str = "fp8") -> float:
     from perfbench import compare, modelcfg, pool, tokenizer, weights
-    from perfbench.reference import clip as ref
 
-    dims = modelcfg.dims(modelcfg.load(cell.config_file))
+    cfg_json = modelcfg.load(cell.config_file)
+    dims = modelcfg.dims(cfg_json)
+    ref = modelcfg.reference(cell.root, cfg_json)
     with tempfile.TemporaryDirectory(prefix="perfbench-control-") as tmp:
         paths = pool.make_pool(cell.traffic["pool"], seed, tmp)
         tree = weights.make_weights(dims, seed, device)

@@ -22,7 +22,6 @@ import numpy as np
 
 from perfbench import compare, modelcfg, pool, roofline, tokenizer, tracing, weights
 from perfbench.harness import Outcome
-from perfbench.reference import clip as ref
 
 
 def timed_order(n_pool: int, n: int, seed: int) -> np.ndarray:
@@ -46,6 +45,7 @@ def run(cell, seed, seconds, trace, device, tmp, t_start) -> Outcome:
     traffic = cell.traffic
     cfg_json = modelcfg.load(cell.config_file)
     dims = modelcfg.dims(cfg_json)
+    ref = modelcfg.reference(cell.root, cfg_json)
     size, batch, T = dims["vision"]["image_size"], traffic["batch_size"], traffic["T"]
     cuda = device.startswith("cuda")
 
@@ -104,6 +104,7 @@ def run(cell, seed, seconds, trace, device, tmp, t_start) -> Outcome:
         end_to_end={"images_per_s": n / window_s, "setup_s": setup_s},
         readings={"window_s": window_s, "images": n, "batches": n // batch,
                   "batch_size": batch, "stage_seconds": dict(tel.stage_seconds),
+                  "counters": dict(tel.counters),
                   "flops_per_image": flops, "dims": dims,
                   "n_classes": len(names)},
         checks=checks, attempted=n,

@@ -28,7 +28,6 @@ import numpy as np
 
 from perfbench import compare, modelcfg, pool, tokenizer, tracing, weights
 from perfbench.harness import Outcome
-from perfbench.reference import clip as ref
 
 #: streams of the warm-up and the window schedules in the seed sequence
 WARMUP_STREAM, WINDOW_STREAM = 4, 5
@@ -170,6 +169,7 @@ def run(cell, seed, seconds, trace, device, tmp, t_start) -> Outcome:
     traffic, params = cell.traffic, cell.params
     cfg_json = modelcfg.load(cell.config_file)
     dims = modelcfg.dims(cfg_json)
+    ref = modelcfg.reference(cell.root, cfg_json)
     cuda = device.startswith("cuda")
     pool_dir = os.path.join(tmp, "pool")
     os.makedirs(pool_dir)

@@ -3,12 +3,17 @@
 Follows OpenAI CLIP (Radford et al., 2021, and the published
 ``openai/clip-vit-*`` checkpoints): the image tower is a ViT with a patch
 embedding (no bias), a class token, learned positions, a LayerNorm before
-the blocks, pre-LN blocks with QuickGELU MLPs, LayerNorm on the class token
-and a projection; the text tower adds token and position embeddings, runs
+the blocks, pre-LN blocks with MLPs, LayerNorm on the class token and a
+projection; the text tower adds token and position embeddings, runs
 causal pre-LN blocks, a final LayerNorm, pools at the end-of-text token
 (the largest id) and projects.  The MCM score (Ming et al., 2022) of an
 image is minus the largest softmax over its cosine similarities to the
 class prompts, divided by T.
+
+The MLP's activation is each tower's ``hidden_act``, as HF's ``ACT2FN``
+names it: ``quick_gelu`` (``h * sigmoid(1.702 h)``, OpenAI CLIP's) and
+``gelu`` (the exact erf GELU, OpenCLIP's larger towers').  Any other name
+raises.
 
 The weights are the ``.npz`` tree's arrays: matrices ``[in, out]``, layers
 stacked on a leading axis, the patch embedding's rows in (row, column,
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 GEMMS = ("fp32", "fp8")
+ACTIVATIONS = ("quick_gelu", "gelu")
 
 
 def float32_only() -> None:
@@ -61,8 +67,18 @@ def _ln(x, p, eps):
     return F.layer_norm(x, x.shape[-1:], p["scale"], p["bias"], eps)
 
 
-def _block(x, p, i: int, heads: int, eps: float, mask, gemm: str):
+def activation(h: torch.Tensor, name: str) -> torch.Tensor:
+    if name == "quick_gelu":
+        return h * torch.sigmoid(1.702 * h)
+    if name == "gelu":
+        return F.gelu(h)
+    raise ValueError(f"hidden_act {name!r}: the reference implements "
+                     f"{', '.join(ACTIVATIONS)}")
+
+
+def _block(x, p, i: int, d: dict, mask, gemm: str):
     a, m = p["attn"], p["mlp"]
+    heads, eps = d["heads"], d["eps"]
     h = _ln(x, {"scale": p["ln1"]["scale"][i], "bias": p["ln1"]["bias"][i]},
             eps)
     b, s, w = h.shape
@@ -82,7 +98,7 @@ def _block(x, p, i: int, heads: int, eps: float, mask, gemm: str):
     h = _ln(x, {"scale": p["ln2"]["scale"][i], "bias": p["ln2"]["bias"][i]},
             eps)
     h = dense(h, m["w1"][i], m["b1"][i], gemm)
-    h = h * torch.sigmoid(1.702 * h)
+    h = activation(h, d["hidden_act"])
     return x + dense(h, m["w2"][i], m["b2"][i], gemm)
 
 
@@ -101,7 +117,7 @@ def encode_image(tree: Dict, dims: dict, pixels_u8: torch.Tensor,
     x = torch.cat([v["class_emb"].expand(b, 1, -1), x], dim=1) + v["pos_emb"]
     x = _ln(x, v["pre_ln"], d["eps"])
     for i in range(d["layers"]):
-        x = _block(x, v["layers"], i, d["heads"], d["eps"], None, gemm)
+        x = _block(x, v["layers"], i, d, None, gemm)
     return dense(_ln(x[:, 0], v["post_ln"], d["eps"]), v["proj"], None, gemm)
 
 
@@ -119,7 +135,7 @@ def encode_text(tree: Dict, dims: dict, ids: torch.Tensor,
     pad = (1.0 - attention_mask.float()) * neg
     mask = causal[None, None] + pad[:, None, None, :]
     for i in range(d["layers"]):
-        x = _block(x, t["layers"], i, d["heads"], d["eps"], mask, gemm)
+        x = _block(x, t["layers"], i, d, mask, gemm)
     x = _ln(x, t["final_ln"], d["eps"])
     pooled = x[torch.arange(n, device=x.device), ids.argmax(dim=-1)]
     return dense(pooled, t["proj"], None, gemm)

@@ -25,6 +25,7 @@ TINY_CONFIG = {
                     "num_hidden_layers": 2, "num_attention_heads": 4,
                     "max_position_embeddings": 77, "vocab_size": 49408,
                     "layer_norm_eps": 1e-05, "hidden_act": "quick_gelu"},
+    "reference": "perfbench/reference/clip.py",
 }
 
 

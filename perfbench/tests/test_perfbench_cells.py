@@ -82,3 +82,49 @@ def test_a_broken_timed_path_is_not_correct(tiny_root, monkeypatch, cell,
                           "altered": _altered}[fault])
     r = _run(root, cell, seconds=2.0)
     assert not r["correct"], r["checks"]
+
+
+def _name_reference(root, name, source):
+    """Write ``source`` as ``perfbench/reference/<name>.py`` of the tiny
+    root and make it the tiny configuration's reference."""
+    ref_dir = os.path.join(root, "perfbench", "reference")
+    with open(os.path.join(ref_dir, name + ".py"), "w") as f:
+        f.write(source)
+    cfg_path = os.path.join(root, "perfbench", "configs", "tiny-b16.json")
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg["reference"] = f"perfbench/reference/{name}.py"
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+
+
+def _reference_source(root):
+    with open(os.path.join(root, "perfbench", "reference", "clip.py")) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("cell", ["tiny.offline", "tiny.serve"])
+def test_the_run_is_held_to_the_reference_its_configuration_names(
+        tiny_root, cell):
+    root, _ = tiny_root
+    plain = "    return -torch.softmax(logits / T, dim=-1).amax(dim=-1)\n"
+    source = _reference_source(root)
+    assert plain in source
+    _name_reference(root, "scaled",
+                    source.replace(plain, plain[:-1] + " * 1.05\n"))
+    r = _run(root, cell, seconds=2.0)
+    assert not r["correct"], r["checks"]
+    assert r["checks"]["score_gap"]["value"] > 0.04
+
+
+def test_the_control_is_the_reference_its_configuration_names(tiny_root):
+    from perfbench import control
+    root, _ = tiny_root
+    cell = spec.load(os.path.join(root, "BENCHMARK.json"), "tiny.offline")
+    assert control.control_gap(cell, 2**31 + 5, "cpu") > 0
+    plain = "def _fp8(x: torch.Tensor) -> torch.Tensor:\n"
+    source = _reference_source(root)
+    assert plain in source
+    _name_reference(root, "no_fp8",
+                    source.replace(plain, plain + "    return x\n"))
+    assert control.control_gap(cell, 2**31 + 5, "cpu") == 0.0

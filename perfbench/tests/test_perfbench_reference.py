@@ -20,11 +20,18 @@ REPO = os.path.dirname(HARNESS)
 
 SMALL = {
     "vision": {"width": 64, "layers": 2, "heads": 4, "mlp": 256,
-               "patch_size": 16, "image_size": 224, "eps": 1e-5},
+               "patch_size": 16, "image_size": 224, "eps": 1e-5,
+               "hidden_act": "quick_gelu"},
     "text": {"width": 64, "layers": 2, "heads": 4, "mlp": 256,
-             "vocab_size": 49408, "context_length": 77, "eps": 1e-5},
+             "vocab_size": 49408, "context_length": 77, "eps": 1e-5,
+             "hidden_act": "quick_gelu"},
     "embed_dim": 32, "dtype": "bfloat16", "precision": "fast",
 }
+
+
+def _small(act):
+    return dict(SMALL, vision=dict(SMALL["vision"], hidden_act=act),
+                text=dict(SMALL["text"], hidden_act=act))
 
 
 @pytest.fixture(scope="module")
@@ -70,22 +77,24 @@ def _hf_state(tree):
     return sd
 
 
-def test_reference_against_hf_transformers(jpegs):
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_reference_against_hf_transformers(jpegs, act):
     os.environ.setdefault("USE_FLAX", "0")
     os.environ.setdefault("USE_TF", "0")
     transformers = pytest.importorskip("transformers")
-    v, t = SMALL["vision"], SMALL["text"]
+    small = _small(act)
+    v, t = small["vision"], small["text"]
     cfg = transformers.CLIPConfig(
-        projection_dim=SMALL["embed_dim"],
+        projection_dim=small["embed_dim"],
         vision_config=dict(hidden_size=v["width"], intermediate_size=v["mlp"],
                            num_hidden_layers=v["layers"],
                            num_attention_heads=v["heads"], image_size=224,
-                           patch_size=16, hidden_act="quick_gelu"),
+                           patch_size=16, hidden_act=act),
         text_config=dict(vocab_size=t["vocab_size"], hidden_size=t["width"],
                          intermediate_size=t["mlp"],
                          num_hidden_layers=t["layers"],
                          num_attention_heads=t["heads"],
-                         max_position_embeddings=77, hidden_act="quick_gelu",
+                         max_position_embeddings=77, hidden_act=act,
                          eos_token_id=t["vocab_size"] - 1))
     hf = transformers.CLIPModel(cfg).eval()
     tree = weights.make_weights(SMALL, 11, "cpu")
@@ -101,11 +110,25 @@ def test_reference_against_hf_transformers(jpegs):
     with torch.no_grad():
         want_img = hf.get_image_features(pixel_values=norm)
         want_txt = hf.get_text_features(input_ids=ids_t, attention_mask=mask_t)
-        got_img = ref.encode_image(tree_t, SMALL, px)
-        got_txt = ref.encode_text(tree_t, SMALL, ids_t, mask_t)
+        got_img = ref.encode_image(tree_t, small, px)
+        got_txt = ref.encode_text(tree_t, small, ids_t, mask_t)
     for got, want in ((got_img, want_img), (got_txt, want_txt)):
         assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
             float((got - want).abs().max())
+
+
+def test_the_activations_apart_and_an_unknown_one_raises():
+    h = torch.linspace(-4, 4, 101)
+    assert torch.equal(ref.activation(h, "quick_gelu"),
+                       h * torch.sigmoid(1.702 * h))
+    assert torch.equal(ref.activation(h, "gelu"),
+                       torch.nn.functional.gelu(h))
+    assert (ref.activation(h, "gelu") - ref.activation(h, "quick_gelu")
+            ).abs().max() > 1e-2
+    tree = ref.to_device(weights.make_weights(SMALL, 14, "cpu"), "cpu")
+    px = torch.zeros(1, 224, 224, 3, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="'gelu_new'"):
+        ref.encode_image(tree, _small("gelu_new"), px)
 
 
 def test_reference_against_the_programs_float32_path(jpegs):

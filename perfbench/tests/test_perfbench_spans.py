@@ -4,6 +4,7 @@ unchanged by the program's ``mcm.*`` annotations and new stage clocks; the
 idle gaps of the trace named by the annotation that covers them; and a
 traced run of the tiny offline cell on the CPU."""
 
+import json
 import os
 
 import pytest
@@ -122,3 +123,24 @@ def test_traced_offline_run_reads_the_span_metrics(tiny_root):
     assert m["pipeline.decode_images_per_s"]["value"] > 0
     assert m["pipeline.decode_images_per_s"]["unit"] == "img/s"
     assert "pipeline.wait_pct" in m and "runner.readback_pct" in m
+
+
+def test_the_programs_counters_reach_the_readers(tiny_root):
+    """A per-layer metric added from new files reads a counter of the
+    program: ``pipeline.rows`` over the traced window is its images."""
+    root, bench = tiny_root
+    with open(os.path.join(root, "perfbench", "metrics",
+                           "tiny.pipeline_rows.py"), "w") as f:
+        f.write("def read(readings, trace):\n"
+                "    return readings[\"counters\"].get(\"pipeline.rows\")\n")
+    bench["per_layer"].append(
+        {"name": "tiny.pipeline_rows", "unit": "img", "better": "higher",
+         "source": "program_counter", "layer": "data pipeline",
+         "moves": "images_per_s.host_paced", "workloads": ["tiny.offline"]})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    cell = spec.load(os.path.join(root, "BENCHMARK.json"), "tiny.offline")
+    r = harness.run_cell(cell, seed=2**31 + 93, seconds=1.0, trace=True,
+                         device="cpu", t_start=0.0)
+    assert r["correct"], r["checks"]
+    assert r["metrics"]["tiny.pipeline_rows"]["value"] == r["attempted"] > 0
