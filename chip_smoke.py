@@ -23,9 +23,11 @@
    shootout's masked case);
    each bsd probe mode is held against its plain version; the packed bsd
    launch (``bsd_fused``) must be bit-identical to the split one; the MCM
-   score also runs C = 16000, B = 1 and 7, D = 768 and a zero (NaN) row;
-   the dense epilogue must be bit-equal to the plain chain in each mode at
-   ViT-L/14's and ViT-B/16's B = 512 sites, timed beside that chain.
+   score also runs C = 16000, B = 1 and 7, D = 768, D = 1280
+   (ViT-bigG/14) and a zero (NaN) row; the dense epilogue must be
+   bit-equal to the plain chain in each mode at ViT-bigG/14's, ViT-L/14's
+   and ViT-B/16's B = 512 sites (bigG's fc1 in the erf-GELU mode ``bias_gelu``, its text
+   fc1 at 1,000 prompts), timed beside that chain.
 3. Decode phase: prints the decode route (``native_info()``: the native
    libjpeg decoder and the libjpeg it linked, Pillow's bundled copy on a
    host without a system libjpeg) and fails if it is PIL; holds the native
@@ -56,7 +58,13 @@
    under ``MCM_TPU_DISABLE_NATIVE=1`` (PIL), native and with
    ``--fast_decode``, each with the same launch counts and its route in
    the log, the native scores within the slice's score tolerance of the
-   PIL run's.  Then, on the weights that run
+   PIL run's.  Then the same command on OpenCLIP ViT-bigG/14 at its full
+   widths and depth, random weights (numpy, ``--allow_random_weights``),
+   ``-b 512``: per image batch 288 dense epilogues (48 layers × 6), 48 of
+   them ``bias_gelu``, 48 math-path attention calls (heads of 104 have no
+   bsd route), no bsd launch and one MCM launch at D = 1280; per prompt
+   batch 192 epilogues, 32 ``bias_gelu``, 32 math-path calls; finite
+   scores.  Then, on the weights the first run
    converted, the rest of the CLI, each run with every launch count set
    to 0 just before it and read just after:
    ``--score maha`` on an ImageNet10 tree (800 train images, so N > D and
@@ -542,8 +550,8 @@ def dense_epilogue_case(rows, n, mode) -> dict:
     acc = torch.randn((rows, n), generator=gen, device="cuda") * 3.0
     b = torch.randn((n,), generator=gen, device="cuda") * 0.5
     r = torch.randn((rows, n), generator=gen, device="cuda").bfloat16()
-    kw = {"bias_quick_gelu": {"act": "quick_gelu"},
-          "bias_residual": {"residual": r}}.get(mode, {})
+    kw = {"bias": {}, "bias_quick_gelu": {"act": "quick_gelu"},
+          "bias_gelu": {"act": "gelu"}, "bias_residual": {"residual": r}}[mode]
     before = epi.dense_epilogue.launches
     got = epi.dense_epilogue(acc, b, **kw)
     want = epi.epilogue_reference(acc, b, torch.bfloat16, **kw)
@@ -552,6 +560,7 @@ def dense_epilogue_case(rows, n, mode) -> dict:
           f"dense_epilogue {(rows, n, mode)}: not one launch")
     check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
           f"dense_epilogue {(rows, n, mode)}: not bit-equal to the plain chain")
+    # an fp32 read and a bf16 write an element, and the residual's bf16 read
     nbytes = rows * n * (8 if mode == "bias_residual" else 6) + n * 4
     bms, by = bound(nbytes, 0.0, torch.bfloat16)
     return {"kernel": "dense_epilogue", "case": [rows, n, mode],
@@ -700,9 +709,10 @@ def kernel_phase() -> dict:
                 if mp:
                     main["mcm_score"] = row
     # past the old shared-memory gate (C = 16000), partial row tiles, L/14's
-    # width, and a zero row in every score
+    # and bigG's widths, and a zero row in every score
     for args in ((BATCH, 16000, 512, "MCM", 1.0), (1, 1000, 512, "MCM", 1.0),
-                 (7, 1000, 512, "entropy", 1.0), (BATCH, 1000, 768, "MCM", 1.0)):
+                 (7, 1000, 512, "entropy", 1.0), (BATCH, 1000, 768, "MCM", 1.0),
+                 (BATCH, 1000, 1280, "MCM", 1.0)):
         emit(mcm_case(*args, False))
     for score in ("MCM", "energy", "max-logit", "entropy", "var"):
         emit(mcm_case(BATCH, 1000, 512, score, 1.0, False, nan_row=3))
@@ -718,10 +728,14 @@ def kernel_phase() -> dict:
         emit(row)
         if row["main_path_shape"]:
             main["fused_mlp"] = row
-    # ViT-L/14's and ViT-B/16's sites at B = 512: the plain chain is the
-    # PyTorch work the kernel replaced on the towers' path; L/14's fc1 is
-    # the summary's row
+    # ViT-L/14's, ViT-bigG/14's and ViT-B/16's sites at B = 512 (bigG's
+    # text fc1 at 1,000 prompts): the plain chain is the PyTorch work the
+    # kernel replaced on the towers' path; L/14's fc1 is the summary's row
     for rows, n, mode in ((512 * 257, 4096, "bias_quick_gelu"),
+                          (512 * 257, 8192, "bias_gelu"),
+                          (512 * 257, 1664, "bias"),
+                          (512 * 257, 1664, "bias_residual"),
+                          (text_rows, 5120, "bias_gelu"),
                           (512 * 257, 1024, "bias"),
                           (512 * 257, 1024, "bias_residual"),
                           (512 * 197, 3072, "bias_quick_gelu"),
@@ -932,10 +946,12 @@ def _all_counters() -> dict:
                 bsd_attention_packed=qkv_probe.bsd_fused)
 
 
-def cli_run(work: str, argv, cli_main=None) -> dict:
+def cli_run(work: str, argv, cli_main=None,
+            random_weights: bool = False) -> dict:
     """One in-process run of a CLI (default: the eval CLI) from ``work`` on
     the card, with every launch count set to 0 just before it and read
-    just after."""
+    just after; a random-weights warning fails it unless
+    ``random_weights``."""
     import warnings
 
     if cli_main is None:
@@ -957,7 +973,7 @@ def cli_run(work: str, argv, cli_main=None) -> dict:
     finally:
         os.chdir(cwd)
     warned = [str(w.message) for w in caught]
-    check(not [w for w in warned if "RANDOM WEIGHTS" in w],
+    check(random_weights or not [w for w in warned if "RANDOM WEIGHTS" in w],
           f"the CLI ran random weights: {warned}")
     return {"results": results, "launches": launches, "cli_wall_s": wall,
             "warnings": warned,
@@ -973,9 +989,10 @@ def _cli_argv(data: str, ckpt: str, name: str, *flags) -> list:
             "--num_workers", "8", "--device", "cuda", *flags]
 
 
-def _log_dir(work: str, in_dataset: str, score: str, name: str) -> str:
+def _log_dir(work: str, in_dataset: str, score: str, name: str,
+             model: str = "ViT-B/16") -> str:
     return os.path.join(work, "results", in_dataset, score,
-                        f"CLIP_ViT-B/16_T_1_ID_{name}")
+                        f"CLIP_{model}_T_1_ID_{name}")
 
 
 def _read_log(log_dir: str) -> str:
@@ -1063,11 +1080,66 @@ def slice_phase(work: str) -> dict:
     emit(out)
     path = {k: launches[k] + route_launches[k]
             for k in ("bsd_attention", "mcm_score", "dense_epilogue")}
-    for fn in (maha_run, train_runs, odin_run, accuracy_resume_runs,
+    for fn in (bigg_run, maha_run, train_runs, odin_run, accuracy_resume_runs,
                vit_runs, serve_run, serve_mesh_run, soak_runs):
         for k, v in fn(work, data, ckpt).items():
             path[k] += v
     return path
+
+
+#: ViT-bigG/14's layers in the image and the text tower
+BIGG_LAYERS, BIGG_TEXT_LAYERS = 48, 32
+BIGG_BATCH = 512
+
+
+def bigg_run(work: str, data: str, ckpt: str) -> dict:
+    """The main path's command on OpenCLIP ViT-bigG/14 at its full widths
+    and depth (random weights: no checkpoint here) at ``-b 512``: each
+    layer's fc1 in the ``bias_gelu`` epilogue, heads of 104 on the math
+    path (no bsd launch), the MCM score at D = 1280; every launch and
+    route count exact, every score finite."""
+    from mcm_tpu_torch.ops.attention import encoder_attention
+    from mcm_tpu_torch.ops.dense_epilogue import dense_epilogue
+    name, model = "chip_smoke_bigg", "ViT-bigG/14"
+    argv = ["--root-dir", data, "--CLIP_ckpt", model, "--precision", "fast",
+            "--allow_random_weights", "--ckpt_dir", ckpt,
+            "--out_datasets", *OOD_SETS, "--name", name, "--num_workers",
+            "8", "--device", "cuda", "--in_dataset", "ImageNet", "--score",
+            "MCM", "-b", str(BIGG_BATCH)]
+    encoder_attention.bsd = encoder_attention.math = 0
+    dense_epilogue.gelu_launches = 0
+    run = cli_run(work, argv, random_weights=True)
+    routes = {"bias_gelu": dense_epilogue.gelu_launches,
+              "attention_bsd": encoder_attention.bsd,
+              "attention_math": encoder_attention.math}
+    n_batches = -(-N_ID // BIGG_BATCH) + len(OOD_SETS) * -(-N_OOD // BIGG_BATCH)
+    # one prompt batch: the 1,000 ImageNet classes
+    layers = BIGG_LAYERS * n_batches + BIGG_TEXT_LAYERS
+    _check_only(run["launches"], {"mcm_score": n_batches,
+                                  "dense_epilogue": EPI_LAYER * layers},
+                f"{model} MCM run over {n_batches} image batches and 1 "
+                f"prompt batch")
+    want = {"bias_gelu": layers, "attention_bsd": 0, "attention_math": layers}
+    check(routes == want, f"{model} MCM run: routes {routes}, want {want}")
+    _check_scores(_log_dir(work, "ImageNet", "MCM", name, model),
+                  dict([("ID_ImageNet", N_ID)]
+                       + [(o, N_OOD) for o in OOD_SETS]))
+    log = _read_log(_log_dir(work, "ImageNet", "MCM", name, model))
+    out = {"phase": "bigg", "model": f"{model} ({BIGG_LAYERS} layers, width "
+           f"1664, MLP 8192, heads of 104; text {BIGG_TEXT_LAYERS} layers, "
+           f"width 1280; erf GELU)", "weights": "random (numpy, seed 0)",
+           "batch": BIGG_BATCH, "image_batches": n_batches,
+           "launches": run["launches"], "routes": routes,
+           "loop_images_per_s": _loop_rate(log),
+           "cli_wall_s": run["cli_wall_s"],
+           "max_memory_allocated_bytes": run["max_memory_allocated_bytes"]}
+    emit(out)
+    print(f"{model} CLI: {n_batches} image batches, {routes}, loop "
+          f"{_loop_rate(log)} img/s, wall {run['cli_wall_s']:.1f}s, peak "
+          f"{run['max_memory_allocated_bytes']} B ({card_line()})",
+          flush=True)
+    return {"bsd_attention": 0, "mcm_score": n_batches,
+            "dense_epilogue": EPI_LAYER * layers}
 
 
 def decode_route_runs(work: str, data: str, ckpt: str,

@@ -82,15 +82,16 @@ RETRIES = 3
 def vit_flops_per_image(cfg=None) -> float:
     """Model FLOPs (2·MAC) of the benched program per image."""
     if cfg is None:
-        S, D, L, P, E = 197, 768, 12, 16, 512   # ViT-B/16
+        S, D, F, L, P, E = 197, 768, 3072, 12, 16, 512   # ViT-B/16
     else:
         v = cfg.vision
         S = (v.image_size // v.patch_size) ** 2 + 1
-        D, L, P, E = v.width, v.layers, v.patch_size, cfg.embed_dim
+        D, F, L, P = v.width, v.mlp_width, v.layers, v.patch_size
+        E = cfg.embed_dim
     patch = 2 * (S - 1) * (P * P * 3) * D
     qkvo = 4 * 2 * S * D * D
     attn = 2 * 2 * S * S * D
-    mlp = 2 * 2 * S * D * (4 * D)
+    mlp = 2 * 2 * S * D * F
     head = 2 * D * E + 2 * E * N_CLASSES
     return patch + L * (qkvo + attn + mlp) + head
 

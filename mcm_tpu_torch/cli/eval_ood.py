@@ -105,8 +105,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model", default="CLIP", type=str,
                         help="model architecture")
     parser.add_argument("--CLIP_ckpt", type=str, default="ViT-B/16",
-                        choices=["ViT-B/32", "ViT-B/16", "ViT-L/14"],
-                        help="which pretrained img encoder to use")
+                        choices=["ViT-B/32", "ViT-B/16", "ViT-L/14",
+                                 "ViT-bigG/14"],
+                        help="which pretrained img encoder to use "
+                             "(ViT-bigG/14: OpenCLIP's, erf GELU)")
     parser.add_argument("--score", default="MCM", type=str,
                         choices=["MCM", "energy", "max-logit", "entropy",
                                  "var", "maha", "odin"],

@@ -1,8 +1,10 @@
 """Model and evaluation configuration.
 
 The same CLI names as the JAX package (``ViT-B/16 | ViT-B/32 | ViT-L/14``)
-map to the same static architecture configs; ``Precision`` holds torch
-dtypes.  Every entry point takes an explicit ``device`` (default
+map to the same static architecture configs, and ``ViT-bigG/14`` (OpenCLIP,
+which the JAX package lacks) to its own; :func:`clip_config_from_hf` reads
+an architecture from the published HF ``CLIPConfig`` keys.  ``Precision``
+holds torch dtypes.  Every entry point takes an explicit ``device`` (default
 ``"cuda"``); :func:`resolve_device` refuses to run without a card unless
 the caller asked for the CPU.
 """
@@ -12,8 +14,20 @@ from __future__ import annotations
 import dataclasses
 import os
 import warnings
+from typing import Optional
 
 import torch
+
+
+#: the towers' MLP activations, by HF's ``hidden_act`` names: QuickGELU
+#: ``x·sigmoid(1.702x)`` (OpenAI CLIP) and the exact erf GELU (OpenCLIP's
+#: larger towers)
+ACTIVATIONS = ("quick_gelu", "gelu")
+
+
+def _settle_mlp_width(tower) -> None:
+    if tower.mlp_width is None:
+        object.__setattr__(tower, "mlp_width", 4 * tower.width)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,9 +39,15 @@ class VisionConfig:
     width: int = 768
     layers: int = 12
     heads: int = 12
-    mlp_ratio: int = 4
+    #: the MLP's hidden width; None = 4 × ``width``, OpenAI CLIP's ratio
+    mlp_width: Optional[int] = None
     projection_dim: int = 512
     layer_norm_eps: float = 1e-5
+    #: the MLP's activation, one of :data:`ACTIVATIONS`
+    hidden_act: str = "quick_gelu"
+
+    def __post_init__(self):
+        _settle_mlp_width(self)
 
     @property
     def num_patches(self) -> int:
@@ -51,9 +71,15 @@ class TextConfig:
     width: int = 512
     layers: int = 12
     heads: int = 8
-    mlp_ratio: int = 4
+    #: the MLP's hidden width; None = 4 × ``width``, OpenAI CLIP's ratio
+    mlp_width: Optional[int] = None
     projection_dim: int = 512
     layer_norm_eps: float = 1e-5
+    #: the MLP's activation, one of :data:`ACTIVATIONS`
+    hidden_act: str = "quick_gelu"
+
+    def __post_init__(self):
+        _settle_mlp_width(self)
 
     @property
     def head_dim(self) -> int:
@@ -111,15 +137,31 @@ def clip_vit_l14() -> CLIPConfig:
     )
 
 
+def clip_vit_bigg14() -> CLIPConfig:
+    """OpenCLIP ViT-bigG/14 (``laion/CLIP-ViT-bigG-14-laion2B-39B-b160k``):
+    vision heads of 104, MLPs 4.92 and 4 times their widths, the erf GELU
+    in both towers."""
+    return CLIPConfig(
+        name="ViT-bigG/14",
+        vision=VisionConfig(patch_size=14, width=1664, layers=48, heads=16,
+                            mlp_width=8192, projection_dim=1280,
+                            hidden_act="gelu"),
+        text=TextConfig(width=1280, layers=32, heads=20, mlp_width=5120,
+                        projection_dim=1280, hidden_act="gelu"),
+    )
+
+
 #: CLI checkpoint-name → architecture (the ``--CLIP_ckpt`` surface).
 CLIP_CONFIGS = {
     "ViT-B/32": clip_vit_b32,
     "ViT-B/16": clip_vit_b16,
     "ViT-L/14": clip_vit_l14,
+    "ViT-bigG/14": clip_vit_bigg14,
 }
 
 #: Feature dim per checkpoint (replaces the reference's manual --feat_dim).
-CLIP_FEAT_DIMS = {"ViT-B/32": 512, "ViT-B/16": 512, "ViT-L/14": 768}
+CLIP_FEAT_DIMS = {"ViT-B/32": 512, "ViT-B/16": 512, "ViT-L/14": 768,
+                  "ViT-bigG/14": 1280}
 
 #: HF hub ids of the checkpoints, for finding a snapshot to convert
 #: (reference ``train_eval_util.py:19-21``).
@@ -127,7 +169,68 @@ HF_CKPT_MAPPING = {
     "ViT-B/16": "openai/clip-vit-base-patch16",
     "ViT-B/32": "openai/clip-vit-base-patch32",
     "ViT-L/14": "openai/clip-vit-large-patch14",
+    "ViT-bigG/14": "laion/CLIP-ViT-bigG-14-laion2B-39B-b160k",
 }
+
+#: the published keys :func:`clip_config_from_hf` reads from each tower
+_HF_TOWER_KEYS = {
+    "vision_config": ("hidden_size", "intermediate_size", "num_hidden_layers",
+                      "num_attention_heads", "patch_size", "image_size",
+                      "num_channels", "layer_norm_eps", "hidden_act"),
+    "text_config": ("hidden_size", "intermediate_size", "num_hidden_layers",
+                    "num_attention_heads", "max_position_embeddings",
+                    "vocab_size", "layer_norm_eps", "hidden_act"),
+}
+
+
+def clip_config_from_hf(cfg: dict, name: str) -> CLIPConfig:
+    """The architecture of a published HF ``CLIPConfig`` (its ``config.json``
+    as a dict: ``projection_dim`` and the two towers' keys), named ``name``.
+    Raises ``ValueError``, naming the key and its value, for a missing key,
+    an activation other than :data:`ACTIVATIONS`, ``num_channels`` other
+    than 3 or an ``intermediate_size`` that is not positive."""
+    def key(path):
+        node = cfg
+        for part in path.split("."):
+            if not isinstance(node, dict) or part not in node:
+                raise ValueError(f"{path} missing: the port reads it")
+            node = node[part]
+        return node
+
+    towers = {}
+    for tower, keys in _HF_TOWER_KEYS.items():
+        got = {k: key(f"{tower}.{k}") for k in keys}
+        if got["hidden_act"] not in ACTIVATIONS:
+            raise ValueError(f"{tower}.hidden_act {got['hidden_act']!r}: the "
+                             f"port runs {', '.join(ACTIVATIONS)}")
+        if not (isinstance(got["intermediate_size"], int)
+                and got["intermediate_size"] > 0):
+            raise ValueError(f"{tower}.intermediate_size "
+                             f"{got['intermediate_size']!r}: not a positive "
+                             f"width")
+        towers[tower] = got
+    v, t = towers["vision_config"], towers["text_config"]
+    if v["num_channels"] != 3:
+        raise ValueError(f"vision_config.num_channels {v['num_channels']!r}: "
+                         f"the port reads 3")
+    proj = key("projection_dim")
+    return CLIPConfig(
+        name=name,
+        vision=VisionConfig(image_size=v["image_size"],
+                            patch_size=v["patch_size"], width=v["hidden_size"],
+                            layers=v["num_hidden_layers"],
+                            heads=v["num_attention_heads"],
+                            mlp_width=v["intermediate_size"],
+                            projection_dim=proj,
+                            layer_norm_eps=v["layer_norm_eps"],
+                            hidden_act=v["hidden_act"]),
+        text=TextConfig(vocab_size=t["vocab_size"],
+                        context_length=t["max_position_embeddings"],
+                        width=t["hidden_size"], layers=t["num_hidden_layers"],
+                        heads=t["num_attention_heads"],
+                        mlp_width=t["intermediate_size"],
+                        projection_dim=proj, layer_norm_eps=t["layer_norm_eps"],
+                        hidden_act=t["hidden_act"]))
 
 
 @dataclasses.dataclass(frozen=True)

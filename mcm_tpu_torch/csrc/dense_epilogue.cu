@@ -1,5 +1,6 @@
 // The epilogue of the towers' dense products in one pass: fp32 product plus
-// fp32 bias, rounded to bf16, then QuickGELU or the residual add.
+// fp32 bias, rounded to bf16, then QuickGELU or the residual add; or the erf
+// GELU of the fp32 sum, then rounded.
 //
 // Replaces no TPU kernel.  On the TPU, XLA fuses the bias add, the rounding,
 // QuickGELU and the residual add of mcm_tpu/models/clip.py::_dense and
@@ -13,15 +14,21 @@
 //   mode 1 bias_quick_gelu: y = bf16(acc + b[c]); t = bf16(y * 1.703125f);
 //                           s = bf16(1 / (1 + expf(-t))); out = bf16(y * s)
 //   mode 2 bias_residual:   y = bf16(acc + b[c]); out = bf16(r + y)
+//   mode 3 bias_gelu:       x = acc + b[c];
+//                           out = bf16((x * 0.5f) * (1 + erff(x * 0.70710677f)))
 // 1.703125 is 1.702 rounded to bf16 (JAX's weak typing of the scalar, which
-// the chain copies); the sigmoid is ATen's CUDA formula in fp32.  The library
-// is built without --use_fast_math, so expf and the division are the accurate
-// ones, and every add, multiply and rounding is written as its round-to-nearest
+// the chain copies); the sigmoid and the GELU are ATen's CUDA formulas in
+// fp32 (F.gelu, approximate="none").  The library is built without
+// --use_fast_math, so expf, erff and the division are the accurate ones, and
+// every add, multiply and rounding is written as its round-to-nearest
 // intrinsic, so nothing is contracted into an FMA.
 //
 // Bound on an H100: bytes.  An element reads 4 B of product, writes 2 B and,
 // in mode 2, reads 2 B of residual: at ViT-L/14's fc1 site (B = 512,
-// [131584, 4096]) 3.23 GB, 0.965 ms at 3.35 TB/s.  Design:
+// [131584, 4096]) 3.23 GB, 0.965 ms at 3.35 TB/s; at ViT-bigG/14's (B = 512,
+// [131584, 8192], mode 3) 6.47 GB, 1.93 ms.  Mode 3's erff costs ~20 fp32
+// instructions an element, under the bytes' time at the card's fp32 rate.
+// Design:
 // - a block owns a tile of 8 rows by 256 columns: a warp a row, a thread 8
 //   columns as two runs of 4 that lie 128 apart, so that each load and store
 //   instruction of a warp covers one contiguous span (512 B of product,
@@ -34,6 +41,8 @@
 //   path 2-5 % faster than with the streaming hint;
 // - N % 4 != 0, or a pointer off its vector's alignment, takes a scalar
 //   kernel, one element a thread (the tests' odd widths).
+// A launch's name in the device trace carries its mode as the template
+// argument: tile_kernel<3> and scalar_kernel<3> are bias_gelu's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,7 +51,7 @@
 
 namespace {
 
-enum Mode { kBias = 0, kBiasQuickGelu = 1, kBiasResidual = 2 };
+enum Mode { kBias = 0, kBiasQuickGelu = 1, kBiasResidual = 2, kBiasGelu = 3 };
 
 constexpr int kChunk = 4;                          // columns of one fp32 load
 constexpr int kColThreads = 32;                    // a warp across a tile
@@ -52,6 +61,7 @@ constexpr int kThreads = kColThreads * kRowThreads;
 constexpr long long kMaxGridY = 65535;
 constexpr long long kMaxScalarBlocks = 1 << 16;
 constexpr float kQuickGeluScale = 1.703125f;  // 1.702 rounded to bf16
+constexpr float kSqrtHalf = 0.70710678118654752440f;  // ATen's M_SQRT1_2
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -62,6 +72,10 @@ template <int MODE>
 __device__ __forceinline__ __nv_bfloat16 epilogue(float acc, float bias, float r) {
   const float sum = __fadd_rn(acc, bias);
   if (MODE == kBias) return __float2bfloat16_rn(sum);
+  if (MODE == kBiasGelu) {
+    const float e = erff(__fmul_rn(sum, kSqrtHalf));
+    return __float2bfloat16_rn(__fmul_rn(__fmul_rn(sum, 0.5f), __fadd_rn(1.0f, e)));
+  }
   const float y = round_bf16(sum);
   if (MODE == kBiasResidual) return __float2bfloat16_rn(__fadd_rn(r, y));
   const float t = round_bf16(__fmul_rn(y, kQuickGeluScale));
@@ -158,8 +172,8 @@ extern "C" {
 
 // acc [rows, cols] fp32, bias [cols] fp32, residual [rows, cols] bf16 (mode
 // 2 only; may be null otherwise), out [rows, cols] bf16, all contiguous on the
-// current device.  mode: 0 bias, 1 bias_quick_gelu, 2 bias_residual.  Returns
-// the cudaError_t of the launch (0 = success).
+// current device.  mode: 0 bias, 1 bias_quick_gelu, 2 bias_residual,
+// 3 bias_gelu.  Returns the cudaError_t of the launch (0 = success).
 int mcm_dense_epilogue(const float* acc, const float* bias, const void* residual, void* out,
                        long long rows, long long cols, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -173,6 +187,7 @@ int mcm_dense_epilogue(const float* acc, const float* bias, const void* residual
     case kBiasResidual:
       if (r == nullptr) return (int)cudaErrorInvalidValue;
       return launch<kBiasResidual>(acc, bias, r, o, rows, cols, s);
+    case kBiasGelu: return launch<kBiasGelu>(acc, bias, r, o, rows, cols, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

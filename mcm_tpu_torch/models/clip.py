@@ -14,10 +14,12 @@ The model state is :class:`CLIP`, an ``nn.Module`` whose ``vision`` and
 plain functions on tensors.  Numerics follow the JAX package: QuickGELU,
 LayerNorm in fp32, every product accumulated in fp32
 (:func:`mcm_tpu_torch.ops.numerics.matmul_f32`), activations in
-``precision.activation_dtype``.  What follows a product with a bias (the
-bias add, the rounding, QuickGELU or the residual add) runs on the card
-as one kernel (:mod:`mcm_tpu_torch.ops.dense_epilogue`) with the same
-roundings.
+``precision.activation_dtype``.  A tower whose ``hidden_act`` is ``"gelu"``
+(OpenCLIP's ViT-bigG/14, which the JAX package lacks) runs the exact erf
+GELU in fp32 on the biased product, before its one rounding.  What follows
+a product with a bias (the bias add, the rounding, the activation or the
+residual add) runs on the card as one kernel
+(:mod:`mcm_tpu_torch.ops.dense_epilogue`) with the same roundings.
 
 ``precision.mlp_impl == "pallas"`` routes each layer's MLP, in both
 towers, through the fused MLP kernel (:func:`mcm_tpu_torch.ops.mlp.fused_mlp`)
@@ -100,7 +102,8 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ w + b with fp32 accumulation and an fp32 bias add, output in
     the compute dtype; then ``quick_gelu(y)`` for ``act="quick_gelu"``, or
-    ``residual + y``.  The epilogue after the product runs as one kernel
+    ``residual + y``; ``act="gelu"`` runs the erf GELU on the fp32 sum,
+    before the rounding.  The epilogue after the product runs as one kernel
     where :func:`~mcm_tpu_torch.ops.dense_epilogue.takes_kernel` allows,
     else as the plain chain: the same numbers either way.
     ``_dense.plain`` counts the calls that took the plain chain."""
@@ -129,8 +132,9 @@ def _unstack(layers: nn.Module) -> list:
 
 def transformer_block(x: torch.Tensor, layer: Dict[str, Any], *, heads: int,
                       eps: float, mask: Optional[torch.Tensor],
-                      precision: Precision) -> torch.Tensor:
-    """One pre-LN CLIP encoder layer: x += attn(ln1(x)); x += mlp(ln2(x))."""
+                      precision: Precision, act: str) -> torch.Tensor:
+    """One pre-LN CLIP encoder layer: x += attn(ln1(x)); x += mlp(ln2(x)),
+    the MLP's activation ``act`` (the tower's ``hidden_act``)."""
     attn, mlp = layer["attn"], layer["mlp"]
     h = layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"], eps)
     q = _dense(h, attn["wq"], attn["bq"], precision)
@@ -145,21 +149,23 @@ def transformer_block(x: torch.Tensor, layer: Dict[str, Any], *, heads: int,
         cdt = precision.activation_dtype
         b, s, d = h.shape
         h = fused_mlp(h.reshape(b * s, d), mlp["w1"].to(cdt), mlp["b1"],
-                      mlp["w2"].to(cdt), mlp["b2"]).reshape(b, s, d)
+                      mlp["w2"].to(cdt), mlp["b2"], act=act).reshape(b, s, d)
         return x + h
-    h = _dense(h, mlp["w1"], mlp["b1"], precision, act="quick_gelu")
+    h = _dense(h, mlp["w1"], mlp["b1"], precision, act=act)
     return _dense(h, mlp["w2"], mlp["b2"], precision, residual=x)
 
 
 def run_transformer(x: torch.Tensor, layers: nn.Module, *, heads: int,
                     eps: float, mask: Optional[torch.Tensor],
-                    precision: Precision, collect_hidden: bool = False):
-    """Loop over the stacked per-layer parameters.  ``collect_hidden=True``
-    also returns the per-layer outputs stacked as [L, B, S, D]."""
+                    precision: Precision, act: str,
+                    collect_hidden: bool = False):
+    """Loop over the stacked per-layer parameters, the MLPs' activation
+    ``act``.  ``collect_hidden=True`` also returns the per-layer outputs
+    stacked as [L, B, S, D]."""
     hs = []
     for layer in _unstack(layers):
         x = transformer_block(x, layer, heads=heads, eps=eps,
-                              mask=mask, precision=precision)
+                              mask=mask, precision=precision, act=act)
         if collect_hidden:
             hs.append(x)
     return (x, torch.stack(hs)) if collect_hidden else x
@@ -205,7 +211,8 @@ def encode_image(params: nn.Module, cfg: VisionConfig,
                    cfg.layer_norm_eps)
     out = run_transformer(x, v["layers"], heads=cfg.heads,
                           eps=cfg.layer_norm_eps, mask=None,
-                          precision=precision, collect_hidden=collect_hidden)
+                          precision=precision, collect_hidden=collect_hidden,
+                          act=cfg.hidden_act)
     hiddens = None
     if collect_hidden:
         last, hs = out
@@ -258,7 +265,8 @@ def encode_text(params: nn.Module, cfg: TextConfig, input_ids: torch.Tensor,
     mask = _text_mask(attention_mask, s, b, x.device)
     out = run_transformer(x, t["layers"], heads=cfg.heads,
                           eps=cfg.layer_norm_eps, mask=mask,
-                          precision=precision, collect_hidden=collect_hidden)
+                          precision=precision, collect_hidden=collect_hidden,
+                          act=cfg.hidden_act)
     hiddens = None
     if collect_hidden:
         last, hs = out

@@ -76,7 +76,7 @@ def hf_clip_key_shapes(cfg: CLIPConfig) -> Dict[str, Tuple[int, ...]]:
         "visual_projection.weight": (cfg.embed_dim, v.width),
     }
     for tower, tc in (("vision_model", v), ("text_model", t)):
-        d, m = tc.width, tc.width * tc.mlp_ratio
+        d, m = tc.width, tc.mlp_width
         for i in range(tc.layers):
             pre = f"{tower}.encoder.layers.{i}"
             for ln in ("layer_norm1", "layer_norm2"):
@@ -184,8 +184,8 @@ def hf_to_openai_state_dict(hf_sd: Dict[str, np.ndarray],
 
 def hf_clip_config_kwargs(cfg: CLIPConfig) -> Dict[str, object]:
     """kwargs for ``transformers.CLIPConfig`` matching ``cfg`` exactly
-    (QuickGELU; EOT = the largest id, which HF pools at its first
-    occurrence as the port's argmax does)."""
+    (each tower's MLP width and activation; EOT = the largest id, which HF
+    pools at its first occurrence as the port's argmax does)."""
     return dict(
         vision_config=dict(
             image_size=cfg.vision.image_size,
@@ -193,16 +193,16 @@ def hf_clip_config_kwargs(cfg: CLIPConfig) -> Dict[str, object]:
             hidden_size=cfg.vision.width,
             num_hidden_layers=cfg.vision.layers,
             num_attention_heads=cfg.vision.heads,
-            intermediate_size=cfg.vision.width * cfg.vision.mlp_ratio,
-            hidden_act="quick_gelu"),
+            intermediate_size=cfg.vision.mlp_width,
+            hidden_act=cfg.vision.hidden_act),
         text_config=dict(
             vocab_size=cfg.text.vocab_size,
             max_position_embeddings=cfg.text.context_length,
             hidden_size=cfg.text.width,
             num_hidden_layers=cfg.text.layers,
             num_attention_heads=cfg.text.heads,
-            intermediate_size=cfg.text.width * cfg.text.mlp_ratio,
-            hidden_act="quick_gelu",
+            intermediate_size=cfg.text.mlp_width,
+            hidden_act=cfg.text.hidden_act,
             eos_token_id=cfg.text.vocab_size - 1),
         projection_dim=cfg.embed_dim)
 

@@ -42,8 +42,7 @@ def _ln_stack(layers: int, dim: int):
 
 
 def _stacked_layers(rng: np.random.Generator, layers: int, width: int,
-                    mlp_ratio: int) -> dict:
-    hidden = width * mlp_ratio
+                    hidden: int) -> dict:
     std = width ** -0.5
 
     def norm(shape, s):
@@ -82,7 +81,7 @@ def init_vision(key, cfg: VisionConfig) -> dict:
         "pos_emb": rng.standard_normal(
             (cfg.seq_len, cfg.width), dtype=np.float32) * 0.01,
         "pre_ln": _ln(cfg.width),
-        "layers": _stacked_layers(rng, cfg.layers, cfg.width, cfg.mlp_ratio),
+        "layers": _stacked_layers(rng, cfg.layers, cfg.width, cfg.mlp_width),
         "post_ln": _ln(cfg.width),
         "proj": rng.standard_normal(
             (cfg.width, cfg.projection_dim),
@@ -97,7 +96,7 @@ def init_text(key, cfg: TextConfig) -> dict:
             (cfg.vocab_size, cfg.width), dtype=np.float32) * 0.02,
         "pos_emb": rng.standard_normal(
             (cfg.context_length, cfg.width), dtype=np.float32) * 0.01,
-        "layers": _stacked_layers(rng, cfg.layers, cfg.width, cfg.mlp_ratio),
+        "layers": _stacked_layers(rng, cfg.layers, cfg.width, cfg.mlp_width),
         "final_ln": _ln(cfg.width),
         "proj": rng.standard_normal(
             (cfg.width, cfg.projection_dim),
@@ -126,7 +125,8 @@ def init_supervised_vit(key, cfg: SupervisedViTConfig) -> dict:
             (cfg.width,), dtype=np.float32) * 0.02,
         "pos_emb": rng.standard_normal(
             (cfg.seq_len, cfg.width), dtype=np.float32) * 0.02,
-        "layers": _stacked_layers(rng, cfg.layers, cfg.width, cfg.mlp_ratio),
+        "layers": _stacked_layers(rng, cfg.layers, cfg.width,
+                                  cfg.width * cfg.mlp_ratio),
         "final_ln": _ln(cfg.width),
         "head": {
             "w": rng.standard_normal(

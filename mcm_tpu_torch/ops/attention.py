@@ -378,7 +378,10 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       heads: int, mask: Optional[torch.Tensor],
                       precision: Precision) -> torch.Tensor:
     """Multi-head attention from the projections' ``[B, S, D]`` layout to a
-    ``[B, S, D]`` result: the model-level entry point."""
+    ``[B, S, D]`` result: the model-level entry point.  Its calls are
+    counted by route: ``encoder_attention.bsd`` those that took the bsd
+    kernel, ``encoder_attention.math`` those that split the heads (a
+    split-heads or flash kernel, or the math path)."""
     b, s, d = q.shape
     dh = d // heads
     impl = None if precision.attn_impl == "auto" else precision.attn_impl
@@ -398,14 +401,20 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             impl is None and bsd_ok
             and precision.activation_dtype == torch.bfloat16):
         _check_bsd_shapes(d, heads)
+        encoder_attention.bsd += 1
         return bsd_attention(q, k, v, heads)
 
     def split(x):
         return x.reshape(b, s, heads, dh).transpose(1, 2)
 
+    encoder_attention.math += 1
     out = fused_attention(split(q), split(k), split(v), mask, precision,
                           impl=impl)
     return out.transpose(1, 2).reshape(b, s, d)
+
+
+encoder_attention.bsd = 0
+encoder_attention.math = 0
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,7 +4,8 @@
 (``csrc/dense_epilogue.cu``): the fp32 product ``acc`` [..., N] of
 ``models/clip.py::_dense`` plus its fp32 bias ``b`` [N], rounded to bf16,
 then by mode QuickGELU (``act="quick_gelu"``) or the add of a bf16
-``residual`` [..., N].  Its plain version, :func:`epilogue_reference`, is
+``residual`` [..., N]; or, with ``act="gelu"``, the exact erf GELU of the
+fp32 sum before the rounding.  Its plain version, :func:`epilogue_reference`, is
 ``_dense``'s chain after the product; the kernel makes every rounding of
 that chain at the same place, so the two agree to the bit.  It replaces
 no TPU kernel: XLA fuses this work into the dot's epilogue on the TPU,
@@ -13,7 +14,8 @@ product.  On a CPU tensor it runs the plain version.
 
 :func:`takes_kernel` is ``_dense``'s route, decided from what it can
 observe in its inputs alone.  ``dense_epilogue.launches`` counts the
-kernel's launches, as the other kernel wrappers count theirs.
+kernel's launches, as the other kernel wrappers count theirs, and
+``dense_epilogue.gelu_launches`` those of them in the ``bias_gelu`` mode.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from mcm_tpu_torch.config import ACTIVATIONS
 from mcm_tpu_torch.ops.numerics import weak_scalar
 
-MODES = ("bias", "bias_quick_gelu", "bias_residual")
+MODES = ("bias", "bias_quick_gelu", "bias_residual", "bias_gelu")
 _MODE_CODES = {m: i for i, m in enumerate(MODES)}
-_ACTS = (None, "quick_gelu")
+_ACTS = (None, *ACTIVATIONS)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -41,7 +45,7 @@ def _mode(act: Optional[str], residual: Optional[torch.Tensor]) -> str:
         raise ValueError("the epilogue takes an activation or a residual, "
                          "not both")
     if act is not None:
-        return "bias_quick_gelu"
+        return f"bias_{act}"
     return "bias" if residual is None else "bias_residual"
 
 
@@ -49,10 +53,13 @@ def epilogue_reference(y: torch.Tensor, b: Optional[torch.Tensor],
                        dtype: torch.dtype, act: Optional[str] = None,
                        residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The chain after ``_dense``'s fp32 product ``y``: the fp32 bias add,
-    one cast to ``dtype``, then QuickGELU or ``residual + ·``."""
+    the erf GELU in fp32 (``act="gelu"``), one cast to ``dtype``, then
+    QuickGELU or ``residual + ·``."""
     _mode(act, residual)
     if b is not None:
         y = y + b.float()
+    if act == "gelu":
+        y = F.gelu(y)
     y = y.to(dtype)
     if act == "quick_gelu":
         y = quick_gelu(y)
@@ -121,7 +128,8 @@ def dense_epilogue(acc: torch.Tensor, b: torch.Tensor,
                    act: Optional[str] = None,
                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """bf16 [..., N]: ``bf16(acc + b)``, then QuickGELU (``act``) or
-    ``residual + ·``, through the kernel on a CUDA tensor, its plain
+    ``residual + ·``, or ``bf16(gelu(acc + b))`` (``act="gelu"``),
+    through the kernel on a CUDA tensor, its plain
     version on the CPU.  Raises on what the kernel does not take (never
     falls back).  One call is one launch."""
     mode = _mode(act, residual)
@@ -131,7 +139,9 @@ def dense_epilogue(acc: torch.Tensor, b: torch.Tensor,
     out = torch.empty(acc.shape, dtype=torch.bfloat16, device=acc.device)
     _launch(acc, b, residual, out, mode)
     dense_epilogue.launches += 1
+    dense_epilogue.gelu_launches += mode == "bias_gelu"
     return out
 
 
 dense_epilogue.launches = 0
+dense_epilogue.gelu_launches = 0

@@ -18,7 +18,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-_ACTS = {"quick_gelu": 0, "gelu": 1}
+from mcm_tpu_torch.config import ACTIVATIONS
+
+#: the kernel's activation codes, in :data:`ACTIVATIONS`' order
+_ACTS = {a: i for i, a in enumerate(ACTIVATIONS)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

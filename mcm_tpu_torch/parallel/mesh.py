@@ -200,7 +200,7 @@ def validate_tp(cfg, mesh: Mesh) -> None:
         tower = getattr(cfg, tower_name, None)
         if tower is None:
             continue
-        hidden = tower.width * tower.mlp_ratio
+        hidden = tower.mlp_width
         for dim_name, value in (("heads", tower.heads),
                                 ("width", tower.width),
                                 ("mlp hidden dim", hidden)):

@@ -127,10 +127,10 @@ def _reduce(partials: List[torch.Tensor], bias: torch.Tensor,
 def transformer_block(x: torch.Tensor, shard_layers: Sequence[Dict],
                       *, heads: int, eps: float,
                       mask: Optional[torch.Tensor],
-                      precision: Precision) -> torch.Tensor:
+                      precision: Precision, act: str) -> torch.Tensor:
     """One pre-LN CLIP encoder layer over the shards (``shard_layers[j]``,
     shard ``j``'s leaves of this layer; shard 0's also hold the whole ones),
-    ``heads`` the heads of each shard."""
+    ``heads`` the heads of each shard, ``act`` the MLP's activation."""
     lead = shard_layers[0]
     cdt = precision.activation_dtype
     h = layer_norm(x, lead["ln1"]["scale"], lead["ln1"]["bias"], eps)
@@ -153,20 +153,20 @@ def transformer_block(x: torch.Tensor, shard_layers: Sequence[Dict],
     for layer in shard_layers:
         mlp = layer["mlp"]
         g = _dense(h.to(mlp["w1"].device), mlp["w1"], mlp["b1"], precision,
-                   act="quick_gelu")
+                   act=act)
         partials.append(matmul_f32(g.to(cdt), mlp["w2"].to(cdt)))
     return x + _reduce(partials, lead["mlp"]["b2"], x.device, cdt)
 
 
 def run_transformer(x: torch.Tensor, model: ShardedCLIP, tower: str, *,
                     heads: int, eps: float, mask: Optional[torch.Tensor],
-                    precision: Precision) -> torch.Tensor:
+                    precision: Precision, act: str) -> torch.Tensor:
     """Loop over the stacked layers of ``tower`` on every shard."""
     per_shard = [_unstack(s[tower]["layers"]) for s in model.shards]
     tp = len(model.shards)
     for shard_layers in zip(*per_shard):
         x = transformer_block(x, shard_layers, heads=heads // tp, eps=eps,
-                              mask=mask, precision=precision)
+                              mask=mask, precision=precision, act=act)
     return x
 
 
@@ -190,7 +190,7 @@ def encode_image(model, cfg: VisionConfig, pixel_values: torch.Tensor,
                    cfg.layer_norm_eps)
     x = run_transformer(x, model, "vision", heads=cfg.heads,
                         eps=cfg.layer_norm_eps, mask=None,
-                        precision=precision)
+                        precision=precision, act=cfg.hidden_act)
     pooled = layer_norm(x[:, 0, :], v["post_ln"]["scale"],
                         v["post_ln"]["bias"], cfg.layer_norm_eps)
     return _dense(pooled, v["proj"], None, precision)
@@ -214,7 +214,7 @@ def encode_text(model, cfg: TextConfig, input_ids: torch.Tensor,
     mask = _text_mask(attention_mask, s, b, x.device)
     x = run_transformer(x, model, "text", heads=cfg.heads,
                         eps=cfg.layer_norm_eps, mask=mask,
-                        precision=precision)
+                        precision=precision, act=cfg.hidden_act)
     x = layer_norm(x, t["final_ln"]["scale"], t["final_ln"]["bias"],
                    cfg.layer_norm_eps)
     eot_idx = torch.argmax(ids, dim=-1)  # EOT has the largest id

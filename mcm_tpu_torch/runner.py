@@ -67,6 +67,7 @@ from mcm_tpu_torch.models.convert import (file_identity, load_params,
                                           resolve_clip_params,
                                           resolve_clip_weight_source)
 from mcm_tpu_torch.models.init import init_clip
+from mcm_tpu_torch.ops.attention import encoder_attention
 from mcm_tpu_torch.ops.dense_epilogue import dense_epilogue
 from mcm_tpu_torch.parallel import EvalStep, VitLinearStep, multihost
 from mcm_tpu_torch.parallel.eval_step import Replicated, to_host
@@ -402,17 +403,29 @@ def decoder_route(cfg: RunConfig) -> str:
     return f"decoder: PIL ({info['reason']})"
 
 
+#: ``towers.*`` counter → the module-level count it reads
+_TOWER_COUNTS = {
+    "towers.dense_epilogue": (dense_epilogue, "launches"),
+    "towers.dense_epilogue_gelu": (dense_epilogue, "gelu_launches"),
+    "towers.dense_plain": (_dense, "plain"),
+    "towers.attention_bsd": (encoder_attention, "bsd"),
+    "towers.attention_math": (encoder_attention, "math"),
+}
+
+
 @contextlib.contextmanager
-def _dense_counts(tel: Telemetry):
-    """Adds the towers' dense epilogues launched (``towers.dense_epilogue``)
-    and plain chains run (``towers.dense_plain``) inside the block to
-    ``tel``'s counters."""
-    launched, plain = dense_epilogue.launches, _dense.plain
+def _tower_counts(tel: Telemetry):
+    """Adds to ``tel``'s counters what the towers did inside the block: the
+    dense epilogues launched (``towers.dense_epilogue``, of them in the
+    erf-GELU mode ``towers.dense_epilogue_gelu``), the plain chains run
+    (``towers.dense_plain``) and the attention calls by route
+    (``towers.attention_bsd``, ``towers.attention_math``)."""
+    before = {n: getattr(*src) for n, src in _TOWER_COUNTS.items()}
     try:
         yield
     finally:
-        tel.count("towers.dense_epilogue", dense_epilogue.launches - launched)
-        tel.count("towers.dense_plain", _dense.plain - plain)
+        for name, src in _TOWER_COUNTS.items():
+            tel.count(name, getattr(*src) - before[name])
 
 
 def _stream_pass(step, dispatch, dataset, cfg: RunConfig,
@@ -427,7 +440,7 @@ def _stream_pass(step, dispatch, dataset, cfg: RunConfig,
     stream = _StreamReadback(tel)
     valids: List[int] = []
     labels: List[np.ndarray] = []
-    with _dense_counts(tel):
+    with _tower_counts(tel):
         for b, batch in enumerate(pipe):
             with tel.stage("h2d", batch=b):
                 images = step.put_batch(batch.images)
@@ -814,7 +827,7 @@ def run_eval(cfg: RunConfig) -> Dict[str, Dict[str, float]]:
             if "host" in _text:
                 _text["dev"] = step.put_replicated(_text["host"])
             else:
-                with _dense_counts(telemetry):
+                with _tower_counts(telemetry):
                     _text["dev"] = _encode_prompts(step, dev_params(),
                                                    tokenizer, test_labels,
                                                    cfg.template_ensemble)

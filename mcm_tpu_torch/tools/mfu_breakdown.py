@@ -63,7 +63,7 @@ def make_block(mode: str):
             return x
         return layer_norm(x, scale, bias, eps)
 
-    def block(x, layer, *, heads, eps, mask, precision):
+    def block(x, layer, *, heads, eps, mask, precision, act):
         if mode != "no_attn":
             attn = layer["attn"]
             h = ln(x, layer["ln1"]["scale"], layer["ln1"]["bias"], eps)
@@ -79,7 +79,7 @@ def make_block(mode: str):
         if mode != "no_mlp":
             mlp = layer["mlp"]
             h = ln(x, layer["ln2"]["scale"], layer["ln2"]["bias"], eps)
-            h = _dense(h, mlp["w1"], mlp["b1"], precision, act="quick_gelu")
+            h = _dense(h, mlp["w1"], mlp["b1"], precision, act=act)
             x = _dense(h, mlp["w2"], mlp["b2"], precision, residual=x)
         return x
 

@@ -25,6 +25,7 @@ from mcm_tpu.models.init import init_clip
 from mcm_tpu_torch import config as tconfig
 from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models.convert import from_jax_params
+from util_cfg import port_config
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
                       "clip_synth_6l384.npz")
@@ -39,9 +40,7 @@ TINY = CLIPConfig(
 
 
 def _tcfg(cfg):
-    return tconfig.CLIPConfig(name=cfg.name,
-                              vision=tconfig.VisionConfig(**vars(cfg.vision)),
-                              text=tconfig.TextConfig(**vars(cfg.text)))
+    return port_config(cfg)
 
 
 @pytest.fixture(scope="module")

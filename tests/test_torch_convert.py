@@ -22,6 +22,7 @@ from mcm_tpu_torch import config as tconfig
 from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models import convert as tconvert
 from mcm_tpu_torch.models import hf_synth as tsynth
+from util_cfg import port_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "goldens", "clip_synth_6l384.npz")
@@ -37,9 +38,7 @@ TINY = jconfig.CLIPConfig(
 
 def _tcfg(cfg):
     """The port's config with the JAX config's fields."""
-    return tconfig.CLIPConfig(name=cfg.name,
-                              vision=tconfig.VisionConfig(**vars(cfg.vision)),
-                              text=tconfig.TextConfig(**vars(cfg.text)))
+    return port_config(cfg)
 
 
 def _identical(got, want, path=""):

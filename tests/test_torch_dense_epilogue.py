@@ -169,7 +169,7 @@ def _bad_calls():
          {}),
         ("non-contiguous residual", (acc, b),
          {"residual": torch.zeros(8, 3, dtype=torch.bfloat16).t()}),
-        ("unknown activation", (acc, b), {"act": "gelu"}),
+        ("unknown activation", (acc, b), {"act": "relu"}),
         ("activation and residual", (acc, b),
          {"act": "quick_gelu", "residual": r}),
     ]

@@ -15,6 +15,7 @@ from mcm_tpu.parallel import make_mesh
 
 from mcm_tpu_torch import config as tconfig
 from mcm_tpu_torch.parallel import EvalStep
+from util_cfg import port_config
 
 CFG = CLIPConfig(
     name="tiny",
@@ -23,9 +24,7 @@ CFG = CLIPConfig(
     text=TextConfig(vocab_size=128, context_length=16, width=64, layers=2,
                     heads=4, projection_dim=32),
 )
-TCFG = tconfig.CLIPConfig(name="tiny",
-                          vision=tconfig.VisionConfig(**vars(CFG.vision)),
-                          text=tconfig.TextConfig(**vars(CFG.text)))
+TCFG = port_config(CFG)
 
 
 @pytest.fixture(scope="module")

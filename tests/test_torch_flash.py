@@ -20,11 +20,11 @@ from mcm_tpu.models.init import init_clip
 from mcm_tpu.ops import attention as jattention
 from mcm_tpu.ops.attention import _flash_attention
 
-from mcm_tpu_torch import config as tconfig
 from mcm_tpu_torch.config import Precision
 from mcm_tpu_torch.models import clip as tclip
 from mcm_tpu_torch.models.convert import from_jax_params
 from mcm_tpu_torch.ops import attention
+from util_cfg import port_tower
 
 
 def _arrays(rng, shape):
@@ -170,7 +170,7 @@ def test_encode_image_flash_matches_jax(monkeypatch):
     through ``flash_attention`` (its plain version here: no launch)."""
     jp = init_clip(7, TINY)
     tp = from_jax_params(jp, "cpu", torch.float32)
-    tcfg = tconfig.VisionConfig(**vars(TINY.vision))
+    tcfg = port_tower(TINY.vision)
     x = np.random.default_rng(1).standard_normal((3, 32, 32, 3)).astype(
         np.float32)
     with pltpu.force_tpu_interpret_mode():

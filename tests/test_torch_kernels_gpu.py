@@ -1253,15 +1253,22 @@ def test_vit_linear_step_on_two_replicas_matches_one_device(cuda):
 #: (rows, N): ViT-L/14 at B = 512 (q/k/v/o and fc2 at 1024, fc1 at 4096),
 #: ViT-B/16 at B = 512 (768, 3072), the text tower of B/16 on 1,000 prompts
 #: of 77 tokens (512, 2048), widths that end in a part of a 256-column tile
-#: (1000, 12), and widths that take the scalar kernel (771, 1)
+#: (1000, 12), and widths that take the scalar kernel (771, 1); ViT-bigG/14
+#: at B = 512 (1664, fc1 at 8192) and its text tower (1280, fc1 at 5120)
 _EPI_SHAPES = [(512 * 257, 1024), (512 * 257, 4096), (512 * 197, 768),
                (512 * 197, 3072), (1000 * 77, 512), (1000 * 77, 2048),
-               (37, 1000), (5, 12), (37, 771), (3, 1)]
+               (37, 1000), (5, 12), (37, 771), (3, 1),
+               (512 * 257, 1664), (512 * 257, 8192), (1000 * 77, 5120)]
+_EPI_MODES = ["bias", "bias_quick_gelu", "bias_residual", "bias_gelu"]
+_EPI_KW = {"bias_quick_gelu": lambda r: {"act": "quick_gelu"},
+           "bias_gelu": lambda r: {"act": "gelu"},
+           "bias_residual": lambda r: {"residual": r}}
 
 
 def _epi_operands(rows, n, device, seed=0):
     """An fp32 product of a few units, an fp32 bias, a bf16 residual; the
-    first row holds both tails of QuickGELU (expf overflows at -1e4)."""
+    first row holds both tails of QuickGELU and the GELU (expf overflows
+    at -1e4)."""
     gen = torch.Generator(device=device).manual_seed(seed + rows + n)
     acc = torch.randn((rows, n), generator=gen, device=device) * 3.0
     special = torch.tensor([-1e4, -100.0, -20.0, -5.0, -0.5, 0.0, 0.5, 5.0,
@@ -1278,22 +1285,22 @@ def _bits_equal(got, want):
                                                    want.view(torch.int16))
 
 
-@pytest.mark.parametrize("mode", ["bias", "bias_quick_gelu", "bias_residual"])
+@pytest.mark.parametrize("mode", _EPI_MODES)
 @pytest.mark.parametrize("rows,n", _EPI_SHAPES)
 def test_dense_epilogue_is_bit_equal_to_the_plain_chain(cuda, rows, n, mode):
     from mcm_tpu_torch.ops import dense_epilogue as epi
     acc, b, r = _epi_operands(rows, n, cuda)
-    kw = {"bias_quick_gelu": {"act": "quick_gelu"},
-          "bias_residual": {"residual": r}}.get(mode, {})
-    before = epi.dense_epilogue.launches
+    kw = _EPI_KW.get(mode, lambda r: {})(r)
+    before = epi.dense_epilogue.launches, epi.dense_epilogue.gelu_launches
     got = epi.dense_epilogue(acc, b, **kw)
     torch.cuda.synchronize()
-    assert epi.dense_epilogue.launches == before + 1
+    assert (epi.dense_epilogue.launches, epi.dense_epilogue.gelu_launches) \
+        == (before[0] + 1, before[1] + (mode == "bias_gelu"))
     want = epi.epilogue_reference(acc, b, torch.bfloat16, **kw)
     assert _bits_equal(got, want)
 
 
-@pytest.mark.parametrize("mode", ["bias", "bias_quick_gelu", "bias_residual"])
+@pytest.mark.parametrize("mode", _EPI_MODES)
 def test_dense_epilogue_off_16_byte_alignment(cuda, mode):
     """A product that starts 4 bytes into its storage takes the scalar
     kernel at a width of 1024, with the same bits."""
@@ -1302,8 +1309,7 @@ def test_dense_epilogue_off_16_byte_alignment(cuda, mode):
     shifted = torch.empty(acc.numel() + 1, device=cuda)[1:].view(acc.shape)
     shifted.copy_(acc)
     assert shifted.data_ptr() % 16 != 0
-    kw = {"bias_quick_gelu": {"act": "quick_gelu"},
-          "bias_residual": {"residual": r}}.get(mode, {})
+    kw = _EPI_KW.get(mode, lambda r: {})(r)
     got = epi.dense_epilogue(shifted, b, **kw)
     assert _bits_equal(got, epi.epilogue_reference(acc, b, torch.bfloat16,
                                                    **kw))
@@ -1367,3 +1373,44 @@ def test_l14_tower_is_bit_equal_with_and_without_the_epilogue(cuda,
         assert totals() == (launched + 144, plain + 2 + 146)
     assert bool(torch.isfinite(got.float()).all())
     assert _bits_equal(got, want)
+
+
+# -- attention at ViT-bigG/14's head of 104 --------------------------------------
+
+@pytest.mark.parametrize("width,route", [(1664, "math"), (1024, "bsd")],
+                         ids=["bigg", "l14"])
+def test_encoder_attention_route_is_counted(cuda, width, route):
+    """``encoder_attention`` at (B, S, D, H) = (2, 257, width, 16) in bf16:
+    ViT-bigG/14's head of 104 takes the math path, bit-equal to
+    ``_math_attention`` on the split heads, and counts as
+    ``encoder_attention.math``; ViT-L/14's head of 64 takes the bsd kernel
+    and counts as ``encoder_attention.bsd``, within the bf16 bound of the
+    math path."""
+    from mcm_tpu_torch.ops import attention
+    q, k, v = _qkv((2, 257, width), torch.bfloat16, cuda)
+    fast = Precision.fast()
+
+    def counts():
+        return (attention.encoder_attention.bsd,
+                attention.encoder_attention.math,
+                attention.bsd_attention.launches)
+
+    before = counts()
+    got = attention.encoder_attention(q, k, v, heads=16, mask=None,
+                                      precision=fast)
+    torch.cuda.synchronize()
+    bsd = route == "bsd"
+    assert counts() == (before[0] + bsd, before[1] + (not bsd),
+                        before[2] + bsd)
+
+    def split(x):
+        return x.reshape(2, 257, 16, width // 16).transpose(1, 2)
+
+    want = attention._math_attention(split(q), split(k), split(v), None,
+                                     fast).transpose(1, 2).reshape(2, 257,
+                                                                   width)
+    if bsd:
+        torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                                   atol=5e-2)
+    else:
+        assert _bits_equal(got, want)

@@ -23,6 +23,7 @@ from mcm_tpu.scores import mahalanobis as jmaha
 from mcm_tpu_torch import config as tconfig
 from mcm_tpu_torch.parallel import EvalStep
 from mcm_tpu_torch.scores import mahalanobis as tmaha
+from util_cfg import port_config
 
 CFG = CLIPConfig(
     name="tiny",
@@ -31,9 +32,7 @@ CFG = CLIPConfig(
     text=TextConfig(vocab_size=128, context_length=16, width=64, layers=2,
                     heads=4, projection_dim=32),
 )
-TCFG = tconfig.CLIPConfig(name="tiny",
-                          vision=tconfig.VisionConfig(**vars(CFG.vision)),
-                          text=tconfig.TextConfig(**vars(CFG.text)))
+TCFG = port_config(CFG)
 
 
 def _naive_maha(features, mu, P):

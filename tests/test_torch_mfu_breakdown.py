@@ -53,7 +53,7 @@ def _run_torch(block, params, cfg, x, precision):
         for layer in tclip._unstack(model["vision"]["layers"]):
             y = block(y, layer, heads=cfg.vision.heads,
                       eps=cfg.vision.layer_norm_eps, mask=None,
-                      precision=precision)
+                      precision=precision, act=cfg.vision.hidden_act)
     return y.float().numpy()
 
 

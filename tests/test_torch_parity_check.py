@@ -6,7 +6,6 @@ record of the mid-size golden, the port's towers against every committed
 golden layer by layer, ``full-report`` as one command, and the refusals."""
 
 import argparse
-import dataclasses
 import os
 
 import numpy as np
@@ -18,6 +17,7 @@ from tools import parity_check as jparity
 
 from mcm_tpu_torch.models import hf_synth as tsynth
 from mcm_tpu_torch.tools import _synth, parity_check
+from util_cfg import jax_fields
 
 transformers = pytest.importorskip("transformers")
 
@@ -27,8 +27,8 @@ SNAPSHOT = "clip-vit-base-patch16"
 
 
 def _fields(cfg):
-    return {"name": cfg.name, "vision": dataclasses.asdict(cfg.vision),
-            "text": dataclasses.asdict(cfg.text)}
+    return {"name": cfg.name, "vision": jax_fields(cfg.vision),
+            "text": jax_fields(cfg.text)}
 
 
 @pytest.mark.parametrize("name", ["golden", "b16", "l14"])

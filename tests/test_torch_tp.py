@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from util_synth import make_imagefolder_tree, make_pet_tree
+from util_cfg import jax_config
 
 from mcm_tpu_torch.config import (CLIP_CONFIGS, CLIPConfig, Precision,
                                   TextConfig, VisionConfig)
@@ -49,11 +50,7 @@ TINY = CLIPConfig(
 
 
 def _jax_cfg(cfg):
-    from mcm_tpu.config import CLIPConfig as JC
-    from mcm_tpu.config import TextConfig as JT
-    from mcm_tpu.config import VisionConfig as JV
-    return JC(name=cfg.name, vision=JV(**cfg.vision.__dict__),
-              text=JT(**cfg.text.__dict__))
+    return jax_config(cfg)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from util_synth import make_imagefolder_tree
+from util_cfg import jax_config
 
 from mcm_tpu_torch.config import CLIPConfig, TextConfig, VisionConfig
 from mcm_tpu_torch.data.folder import ImageFolder
@@ -102,10 +103,7 @@ def test_train_clip_matches_jax(tree, tmp_path, monkeypatch):
     (measured: under 0.04·lr, a few fp32 ulps), except the key biases,
     whose gradient is zero but for rounding (softmax is shift-invariant)
     and takes either sign in either framework: those within 2·lr a step."""
-    from mcm_tpu.config import CLIPConfig as JC
     from mcm_tpu.config import Precision as JPrecision
-    from mcm_tpu.config import TextConfig as JT
-    from mcm_tpu.config import VisionConfig as JV
     from mcm_tpu.data.folder import ImageFolder as JImageFolder
     from mcm_tpu.models.convert import load_params as jax_load
     from mcm_tpu.parallel.mesh import make_mesh
@@ -116,8 +114,7 @@ def test_train_clip_matches_jax(tree, tmp_path, monkeypatch):
 
     monkeypatch.setenv("MCM_TPU_DISABLE_NATIVE", "1")
     cfg = _tiny_cfg()
-    jcfg = JC(name="tiny", vision=JV(**cfg.vision.__dict__),
-              text=JT(**cfg.text.__dict__))
+    jcfg = jax_config(cfg)
     common = dict(class_names=["owl", "cat", "dog"],
                   label_permutation=np.array([1, 2, 0]),
                   tokenizer=_HashTokenizer(512), epochs=2, batch_size=8,
@@ -279,15 +276,11 @@ def test_train_state_refuses_a_bad_leaf(tmp_path, what):
 def test_train_state_refuses_the_jax_packages_file(tmp_path):
     """A JAX ``.train_state.npz`` has JAX's structure string: refused with
     the structure error, not a crash."""
-    from mcm_tpu.config import CLIPConfig as JC
-    from mcm_tpu.config import TextConfig as JT
-    from mcm_tpu.config import VisionConfig as JV
     from mcm_tpu.train import make_train_step as jax_make
     from mcm_tpu.train.checkpoint import save_train_state as jax_save
 
     cfg = _tiny_cfg()
-    jcfg = JC(name="tiny", vision=JV(**cfg.vision.__dict__),
-              text=JT(**cfg.text.__dict__))
+    jcfg = jax_config(cfg)
     init_state, _ = jax_make(jcfg)
     path = str(tmp_path / "jax.train_state.npz")
     jax_save(init_state(init_clip(0, cfg)), path, epoch=1)
@@ -297,15 +290,11 @@ def test_train_state_refuses_the_jax_packages_file(tmp_path):
 
 def test_jax_refuses_the_ports_train_state(tmp_path):
     """And the other way: JAX's restore refuses the port's file."""
-    from mcm_tpu.config import CLIPConfig as JC
-    from mcm_tpu.config import TextConfig as JT
-    from mcm_tpu.config import VisionConfig as JV
     from mcm_tpu.train import load_train_state as jax_load
     from mcm_tpu.train import make_train_step as jax_make
 
     cfg = _tiny_cfg()
-    jcfg = JC(name="tiny", vision=JV(**cfg.vision.__dict__),
-              text=JT(**cfg.text.__dict__))
+    jcfg = jax_config(cfg)
     path = str(tmp_path / "port.train_state.npz")
     save_train_state(_state(), path, epoch=1)
     init_state, _ = jax_make(jcfg)

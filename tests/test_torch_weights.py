@@ -12,6 +12,7 @@ from mcm_tpu.models.hf_synth import golden_config, synth_hf_clip_state_dict
 from mcm_tpu_torch import config as tconfig
 from mcm_tpu_torch.models import convert as tconvert
 from mcm_tpu_torch.models import init as tinit
+from util_cfg import port_config
 
 
 @pytest.fixture(scope="module")
@@ -22,10 +23,7 @@ def golden_params():
 
 def _tconfig(jcfg):
     """The port's config with the JAX config's fields."""
-    return tconfig.CLIPConfig(
-        name=jcfg.name,
-        vision=tconfig.VisionConfig(**vars(jcfg.vision)),
-        text=tconfig.TextConfig(**vars(jcfg.text)))
+    return port_config(jcfg)
 
 
 def test_npz_round_trip_matches_jax_loader(golden_params, tmp_path):
