@@ -27,7 +27,10 @@
    (ViT-bigG/14) and a zero (NaN) row; the dense epilogue must be
    bit-equal to the plain chain in each mode at ViT-bigG/14's, ViT-L/14's
    and ViT-B/16's B = 512 sites (bigG's fc1 in the erf-GELU mode ``bias_gelu``, its text
-   fc1 at 1,000 prompts), timed beside that chain.
+   fc1 at 1,000 prompts), timed beside that chain; so must the LayerNorm
+   kernel at the vision rows of ViT-L/14 and ViT-bigG/14 (B = 512) and of
+   ViT-B/16 (the slice run's B and 512), at the text rows of bigG, B/16
+   and L/14 (1,000 prompts) and at B/16's CLS rows of 8 and 1.
 3. Decode phase: prints the decode route (``native_info()``: the native
    libjpeg decoder and the libjpeg it linked, Pillow's bundled copy on a
    host without a system libjpeg) and fails if it is PIL; holds the native
@@ -51,7 +54,10 @@
    image batch, 12 layers × 6 products with a bias, and 72 per prompt
    batch of the text tower; every later run counts it too: 6 a layer of a
    bf16 tower on the card, 4 beside the fused MLP, 8 at T = 2, none in
-   fp32 or under autograd), that every score is finite
+   fp32 or under autograd; the LayerNorm: 26 per image batch and 25 per
+   prompt batch, and in every later run 2 a layer of a bf16 tower on the
+   card plus its pre-LN and post-LN or final LN, as many at T = 2, none
+   in fp32 or under autograd), that every score is finite
    and that the CSV was written and that the log names the native
    decoder; then scores one batch through the math paths and bounds the
    difference; then the same command again on each decode route in turn,
@@ -61,10 +67,10 @@
    PIL run's.  Then the same command on OpenCLIP ViT-bigG/14 at its full
    widths and depth, random weights (numpy, ``--allow_random_weights``),
    ``-b 512``: per image batch 288 dense epilogues (48 layers × 6), 48 of
-   them ``bias_gelu``, 48 math-path attention calls (heads of 104 have no
-   bsd route), no bsd launch and one MCM launch at D = 1280; per prompt
-   batch 192 epilogues, 32 ``bias_gelu``, 32 math-path calls; finite
-   scores.  Then, on the weights the first run
+   them ``bias_gelu``, 98 LayerNorms, 48 math-path attention calls (heads
+   of 104 have no bsd route), no bsd launch and one MCM launch at D =
+   1280; per prompt batch 192 epilogues, 32 ``bias_gelu``, 65 LayerNorms,
+   32 math-path calls; finite scores.  Then, on the weights the first run
    converted, the rest of the CLI, each run with every launch count set
    to 0 just before it and read just after:
    ``--score maha`` on an ImageNet10 tree (800 train images, so N > D and
@@ -236,9 +242,9 @@
    ``mh_attention`` launch a case), ``int8_probe``, ``h2d_probe`` (one
    round) and ``h2d_probe2`` (two rounds).
 6. Prints each phase's wall seconds, one ``{"kernels": [...]}`` line (its
-   ``launches``: bsd, MCM and the dense epilogue summed over the slice
-   phase's CLI runs (the
-   decode-route runs included), training, serving (both replicas) and soak
+   ``launches``: bsd, MCM, the dense epilogue and the LayerNorm summed
+   over the slice phase's CLI runs (the decode-route and bigG runs
+   included), training, serving (both replicas) and soak
    runs, every rank of the dp phase and the CLIP-Linear run on the
    two-rank checkpoint, the local dp phase's CLI runs, the knob kernels
    over their bench runs, the tools' kernels over their tool's run; apart
@@ -356,8 +362,10 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 TENSOR_CORE_LIBS = ("bsd_attention", "bsd_probe", "split_attention",
                     "flash_attention", "fused_mlp")
 #: the libraries that must not spill: those, the MCM score's register
-#: tiles and the dense epilogue's streaming loop
-NO_SPILL_LIBS = TENSOR_CORE_LIBS + ("mcm_score", "dense_epilogue")
+#: tiles, the dense epilogue's streaming loop and the LayerNorm's rows held
+#: in registers
+NO_SPILL_LIBS = TENSOR_CORE_LIBS + ("mcm_score", "dense_epilogue",
+                                    "layer_norm")
 
 #: dense-epilogue launches a layer of a bf16 tower on the card: the
 #: products with a bias (q, k, v, o, fc1, fc2); 4 where the fused MLP takes
@@ -370,6 +378,17 @@ EPI_LAYER, EPI_LAYER_FUSED_MLP, EPI_LAYER_TP2 = 6, 4, 8
 EPI_IMAGE = EPI_TEXT = 12 * EPI_LAYER
 EPI_VIT_IMAGE = 12 * EPI_LAYER + 2
 EPI_TP2_TOWER = 12 * EPI_LAYER_TP2
+#: LayerNorm launches of one image batch (pre-LN, two a layer, post-LN on
+#: the CLS rows) and of one prompt batch (two a layer, final LN) on the
+#: card in bf16: ViT-B/16 26 and 25, ViT-L/14 50, ViT-bigG/14 98 and 65;
+#: ViT-Linear two a layer and its final LN.  At T = 2 the lead shard alone
+#: normalises, so a tower launches as many as at T = 1.  None in fp32 or
+#: under autograd, as the dense epilogue.
+LN_IMAGE, LN_TEXT = 2 * 12 + 2, 2 * 12 + 1
+LN_VIT_IMAGE = 2 * 12 + 1
+#: the kernels of the port's main path, whose launches are summed over the
+#: path's runs
+PATH_KERNELS = ("bsd_attention", "mcm_score", "dense_epilogue", "layer_norm")
 
 
 def build() -> tuple:
@@ -571,6 +590,40 @@ def dense_epilogue_case(rows, n, mode) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+def layer_norm_case(rows, c) -> dict:
+    """The LayerNorm kernel on ``rows`` bf16 rows of width ``c``: its bits
+    against the plain chain's, and its time beside that chain's and, as a
+    yardstick only (the port never calls it), ``F.layer_norm``'s."""
+    import torch.nn.functional as F
+
+    from mcm_tpu_torch.ops import layer_norm as ln
+    gen = torch.Generator(device="cuda").manual_seed(rows + c)
+    x = (torch.randn((rows, c), generator=gen, device="cuda") * 2.0).bfloat16()
+    scale = 1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    before = ln.layer_norm.launches
+    got = ln.layer_norm(x, scale, bias, 1e-5)
+    want = ln.layer_norm_reference(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    check(ln.layer_norm.launches == before + 1,
+          f"layer_norm {(rows, c)}: not one launch")
+    differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    check(differ == 0, f"layer_norm {(rows, c)}: {differ} outputs differ "
+                       f"from the plain chain's bits")
+    # a bf16 read and a bf16 write an element, the fp32 scale and bias
+    bms, by = bound(rows * c * 4 + c * 8, 0.0, torch.bfloat16)
+    scale16, bias16 = scale.bfloat16(), bias.bfloat16()
+    return {"kernel": "layer_norm", "case": [rows, c],
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "outputs_differing": differ,
+            "kernel_ms": cuda_ms(lambda: ln.layer_norm(x, scale, bias, 1e-5)),
+            "plain_ms": cuda_ms(lambda: ln.layer_norm_reference(
+                x, scale, bias, 1e-5), iters=10),
+            "library_ms": cuda_ms(lambda: F.layer_norm(
+                x, (c,), scale16, bias16, 1e-5)),
+            "bound_ms": bms, "bound_by": by}
+
+
 SPLIT_KERNELS = {"pallas_attention": "pallas", "mh_attention": "pallas_mh",
                  "batched_attention": "pallas_batched"}
 #: the bench's attention knob runs: wrapper → MCM_BENCH_ATTN
@@ -744,6 +797,16 @@ def kernel_phase() -> dict:
         row = dense_epilogue_case(rows, n, mode)
         emit(row)
         main.setdefault("dense_epilogue", row)
+    # ViT-L/14's and ViT-bigG/14's vision rows at B = 512, ViT-B/16's at
+    # the slice run's B and at 512, the text rows of bigG, B/16 and L/14 at
+    # 1,000 prompts, and the CLS rows of B/16's serving buckets 8 and 1
+    # (fewer than 16 rows: the wide kernel); L/14's is the summary's row
+    for rows, c in ((512 * 257, 1024), (512 * 257, 1664), (text_rows, 1280),
+                    (BATCH * 197, 768), (512 * 197, 768), (text_rows, 512),
+                    (text_rows, 768), (8, 768), (1, 768)):
+        row = layer_norm_case(rows, c)
+        emit(row)
+        main.setdefault("layer_norm", row)
     for name in ATTN_KNOBS:
         # flash also runs S = 600, which JAX pads past 512 (its block loop,
         # on tensor cores in bf16), S = 17 and, below, S = 256 over 197
@@ -1037,7 +1100,8 @@ def slice_phase(work: str) -> dict:
     check(os.path.exists(npz), f"the CLI did not cache its conversion at {npz}")
     _check_only(launches, {"bsd_attention": 12 * n_batches,
                            "mcm_score": n_batches,
-                           "dense_epilogue": EPI_IMAGE * n_batches + EPI_TEXT},
+                           "dense_epilogue": EPI_IMAGE * n_batches + EPI_TEXT,
+                           "layer_norm": LN_IMAGE * n_batches + LN_TEXT},
                 f"MCM run over {n_batches} image batches and 1 prompt batch")
     log_dir = _log_dir(work, "ImageNet", "MCM", "chip_smoke")
     csv = os.path.join(log_dir, "chip_smoke.csv")
@@ -1078,8 +1142,7 @@ def slice_phase(work: str) -> dict:
     routes, route_launches = decode_route_runs(work, data, ckpt, n_batches)
     out.update(routes)
     emit(out)
-    path = {k: launches[k] + route_launches[k]
-            for k in ("bsd_attention", "mcm_score", "dense_epilogue")}
+    path = {k: launches[k] + route_launches[k] for k in PATH_KERNELS}
     for fn in (bigg_run, maha_run, train_runs, odin_run, accuracy_resume_runs,
                vit_runs, serve_run, serve_mesh_run, soak_runs):
         for k, v in fn(work, data, ckpt).items():
@@ -1115,8 +1178,10 @@ def bigg_run(work: str, data: str, ckpt: str) -> dict:
     n_batches = -(-N_ID // BIGG_BATCH) + len(OOD_SETS) * -(-N_OOD // BIGG_BATCH)
     # one prompt batch: the 1,000 ImageNet classes
     layers = BIGG_LAYERS * n_batches + BIGG_TEXT_LAYERS
+    ln_want = (2 * BIGG_LAYERS + 2) * n_batches + 2 * BIGG_TEXT_LAYERS + 1
     _check_only(run["launches"], {"mcm_score": n_batches,
-                                  "dense_epilogue": EPI_LAYER * layers},
+                                  "dense_epilogue": EPI_LAYER * layers,
+                                  "layer_norm": ln_want},
                 f"{model} MCM run over {n_batches} image batches and 1 "
                 f"prompt batch")
     want = {"bias_gelu": layers, "attention_bsd": 0, "attention_math": layers}
@@ -1139,7 +1204,7 @@ def bigg_run(work: str, data: str, ckpt: str) -> dict:
           f"{run['max_memory_allocated_bytes']} B ({card_line()})",
           flush=True)
     return {"bsd_attention": 0, "mcm_score": n_batches,
-            "dense_epilogue": EPI_LAYER * layers}
+            "dense_epilogue": EPI_LAYER * layers, "layer_norm": ln_want}
 
 
 def decode_route_runs(work: str, data: str, ckpt: str,
@@ -1150,9 +1215,10 @@ def decode_route_runs(work: str, data: str, ckpt: str,
     in the log; the native scores held within the slice's score tolerance
     of the PIL run's."""
     want = {"bsd_attention": 12 * n_batches, "mcm_score": n_batches,
-            "dense_epilogue": EPI_IMAGE * n_batches + EPI_TEXT}
+            "dense_epilogue": EPI_IMAGE * n_batches + EPI_TEXT,
+            "layer_norm": LN_IMAGE * n_batches + LN_TEXT}
     runs = {}
-    total = {"bsd_attention": 0, "mcm_score": 0, "dense_epilogue": 0}
+    total = dict.fromkeys(PATH_KERNELS, 0)
     for name, flags, env, prefix in [
             ("chip_smoke_pil", [], "1", "PIL ("),
             ("chip_smoke_native", [], None, "native ("),
@@ -1218,7 +1284,8 @@ def maha_run(work: str, data: str, ckpt: str) -> dict:
                "ood_full": len(OOD_SETS) * (N_OOD // MAHA_BATCH)}
     n_batches = sum(batches.values())
     _check_only(run["launches"], {"bsd_attention": 12 * n_batches,
-                                  "dense_epilogue": EPI_IMAGE * n_batches},
+                                  "dense_epilogue": EPI_IMAGE * n_batches,
+                                  "layer_norm": LN_IMAGE * n_batches},
                 f"maha run over {batches} image batches")
     check(not [w for w in run["warnings"] if "rank-deficient" in w],
           f"maha run with N = {n_train} warned of a rank-deficient "
@@ -1259,7 +1326,7 @@ def maha_run(work: str, data: str, ckpt: str) -> dict:
           "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
           "csv": open(csv).read().strip().splitlines()})
     return {k: run["launches"][k] for k in ("bsd_attention",
-                                            "dense_epilogue")}
+                                            "dense_epilogue", "layer_norm")}
 
 
 def odin_run(work: str, data: str, ckpt: str) -> dict:
@@ -1410,7 +1477,9 @@ def accuracy_resume_runs(work: str, data: str, ckpt: str) -> dict:
     _check_only(run["launches"], {"bsd_attention": 12 * (id_b + ood_b),
                                   "mcm_score": ood_b,
                                   "dense_epilogue": EPI_IMAGE * (id_b + ood_b)
-                                  + EPI_TEXT},
+                                  + EPI_TEXT,
+                                  "layer_norm": LN_IMAGE * (id_b + ood_b)
+                                  + LN_TEXT},
                 f"eval_accuracy run over {id_b} ID and {ood_b} OOD batches")
     log_dir = _log_dir(work, "ImageNet", "MCM", "chip_smoke_acc")
     log = _read_log(log_dir)
@@ -1456,8 +1525,7 @@ def accuracy_resume_runs(work: str, data: str, ckpt: str) -> dict:
           "cli_wall_s": resumed["cli_wall_s"],
           "allocated_before_bytes": base, "max_memory_allocated_bytes": peak,
           "model_bytes_bf16": model_bytes, "same_csv": True})
-    return {k: run["launches"][k] for k in ("bsd_attention", "mcm_score",
-                                            "dense_epilogue")}
+    return {k: run["launches"][k] for k in PATH_KERNELS}
 
 
 def _write_odin_tree(root: str, seed: int = 2) -> None:
@@ -1494,7 +1562,8 @@ def vit_runs(work: str, data: str, ckpt: str) -> dict:
                   cli_main=msp_main)
     n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
     _check_only(run["launches"], {"bsd_attention": vit_cfg.layers * n_batches,
-                                  "dense_epilogue": EPI_VIT_IMAGE * n_batches},
+                                  "dense_epilogue": EPI_VIT_IMAGE * n_batches,
+                                  "layer_norm": LN_VIT_IMAGE * n_batches},
                 f"eval_msp run over {n_batches} image batches")
     log_dir = os.path.join(work, run["results"])
     with open(os.path.join(log_dir, "chip_smoke_msp.csv")) as f:
@@ -1538,7 +1607,7 @@ def vit_runs(work: str, data: str, ckpt: str) -> dict:
           "max_memory_allocated_bytes": odin["max_memory_allocated_bytes"],
           **vit_odin_batch(odin_data, ckpt)})
     return {k: run["launches"][k] for k in ("bsd_attention",
-                                            "dense_epilogue")}
+                                            "dense_epilogue", "layer_norm")}
 
 
 def _vit_step(data: str, ckpt: str, **over) -> tuple:
@@ -1766,6 +1835,8 @@ def serve_run(work: str, data: str, ckpt: str) -> dict:
                                                           + classify_chunks),
                                "mcm_score": n_batches,
                                "dense_epilogue": EPI_LAYER * layers * (
+                                   n_batches + classify_chunks),
+                               "layer_norm": (2 * layers + 2) * (
                                    n_batches + classify_chunks)},
                     f"serving: {n_batches} batcher batches and "
                     f"{classify_chunks} classify batch")
@@ -1843,8 +1914,7 @@ def serve_run(work: str, data: str, ckpt: str) -> dict:
           "maha_classified": len(maha_imgs),
           "maha_max_classify_vs_score_delta": float(
               np.abs(maha_cls - maha).max())})
-    return {k: launches[k] for k in ("bsd_attention", "mcm_score",
-                                     "dense_epilogue")}
+    return {k: launches[k] for k in PATH_KERNELS}
 
 
 SERVE_MESH_BUCKETS = (2, 8, 64)
@@ -1992,12 +2062,14 @@ def serve_mesh_run(work: str, data: str, ckpt: str) -> dict:
     layers = two.step.cfg.vision.layers
     _check_only(launches, {"bsd_attention": 2 * layers * chunks,
                            "mcm_score": 2 * chunks,
-                           "dense_epilogue": 2 * EPI_LAYER * layers * chunks},
+                           "dense_epilogue": 2 * EPI_LAYER * layers * chunks,
+                           "layer_norm": 2 * (2 * layers + 2) * chunks},
                 f"two replicas over {chunks} batches (per replica: "
                 f"{layers} bsd and 1 MCM a batch)")
     _check_only(launches1, {"bsd_attention": layers * chunks,
                             "mcm_score": chunks,
-                            "dense_epilogue": EPI_LAYER * layers * chunks},
+                            "dense_epilogue": EPI_LAYER * layers * chunks,
+                            "layer_norm": (2 * layers + 2) * chunks},
                 f"one replica over {chunks} batches")
     bit_equal = bool(np.array_equal(s2, s1))
     err = np.abs(s2 - s1)
@@ -2020,6 +2092,8 @@ def serve_mesh_run(work: str, data: str, ckpt: str) -> dict:
     _check_only(mb_launches, {"bsd_attention": 2 * layers * mb.n_batches,
                               "mcm_score": 2 * mb.n_batches,
                               "dense_epilogue": 2 * EPI_LAYER * layers
+                              * mb.n_batches,
+                              "layer_norm": 2 * (2 * layers + 2)
                               * mb.n_batches},
                 f"the MicroBatcher's {mb.n_batches} batches on two replicas")
     mb_err = np.abs(batched - s1[:32])
@@ -2064,8 +2138,7 @@ def serve_mesh_run(work: str, data: str, ckpt: str) -> dict:
           "device_score_ms_by_bucket": bucket_ms,
           "max_memory_allocated_bytes_both_detectors": peak,
           "http": dict(http, max_delta=float(http_err.max())), "card": card})
-    return {k: launches[k] + mb_launches[k]
-            for k in ("bsd_attention", "mcm_score", "dense_epilogue")}
+    return {k: launches[k] + mb_launches[k] for k in PATH_KERNELS}
 
 
 def soak_runs(work: str, data: str, ckpt: str) -> dict:
@@ -2076,7 +2149,7 @@ def soak_runs(work: str, data: str, ckpt: str) -> dict:
     other kernel."""
     from mcm_tpu_torch.tools import http_soak, serve_soak
     counters = _all_counters()
-    total = {"bsd_attention": 0, "mcm_score": 0, "dense_epilogue": 0}
+    total = dict.fromkeys(PATH_KERNELS, 0)
     rows = {}
     for tool in (serve_soak, http_soak):
         name = tool.__name__.rsplit(".", 1)[1]
@@ -2091,7 +2164,8 @@ def soak_runs(work: str, data: str, ckpt: str) -> dict:
         check(m > 0, f"{name}: no MCM launch")
         # the detector's 1000 prompts, encoded once as it is built
         _check_only(launches, {"bsd_attention": 12 * m, "mcm_score": m,
-                               "dense_epilogue": EPI_IMAGE * m + EPI_TEXT},
+                               "dense_epilogue": EPI_IMAGE * m + EPI_TEXT,
+                               "layer_norm": LN_IMAGE * m + LN_TEXT},
                     name)
         check(row["decoder"]["available"], f"{name} decoded through PIL")
         for k in total:
@@ -2307,7 +2381,9 @@ def finetune_run(work: str, data: str, ckpt: str) -> dict:
     _check_only(ev["launches"], {"bsd_attention": 12 * n_batches,
                                  "mcm_score": n_batches,
                                  "dense_epilogue": EPI_IMAGE * n_batches
-                                 + EPI_TEXT},
+                                 + EPI_TEXT,
+                                 "layer_norm": LN_IMAGE * n_batches
+                                 + LN_TEXT},
                 f"CLIP-Linear MCM run over {n_batches} image batches")
     log_dir = os.path.join(work, "results", "ImageNet10", "MCM",
                            f"CLIP-Linear_ViT-B/16_T_1_ID_{name}")
@@ -2338,8 +2414,7 @@ def finetune_run(work: str, data: str, ckpt: str) -> dict:
           "loop_images_per_s": _loop_rate(log),
           "max_memory_allocated_bytes": ev["max_memory_allocated_bytes"],
           "csv": open(csv).read().strip().splitlines()})
-    return {k: ev["launches"][k] for k in ("bsd_attention", "mcm_score",
-                                           "dense_epilogue")}
+    return {k: ev["launches"][k] for k in PATH_KERNELS}
 
 
 def step_compare(data: str, ckpt: str) -> dict:
@@ -2806,7 +2881,9 @@ def dp_train_phase(work: str) -> dict:
     _check_only(ev["launches"], {"bsd_attention": 12 * n_batches,
                                  "mcm_score": n_batches,
                                  "dense_epilogue": EPI_IMAGE * n_batches
-                                 + EPI_TEXT},
+                                 + EPI_TEXT,
+                                 "layer_norm": LN_IMAGE * n_batches
+                                 + LN_TEXT},
                 f"CLIP-Linear on the two-rank checkpoint, {n_batches} "
                 f"image batches")
     log_dir = os.path.join(work, "results", "ImageNet10", "MCM",
@@ -2844,8 +2921,7 @@ def dp_train_phase(work: str) -> dict:
                           "results": ev["results"],
                           "cli_wall_s": ev["cli_wall_s"]},
           "card": card})
-    return {k: ev["launches"][k] for k in ("bsd_attention", "mcm_score",
-                                           "dense_epilogue")}
+    return {k: ev["launches"][k] for k in PATH_KERNELS}
 
 
 def _score_files(log_dir: str, names) -> dict:
@@ -2893,7 +2969,7 @@ def dp_phase(work: str) -> dict:
     want = _score_files(single, ["ID_ImageNet", *OOD_SETS])
     with open(os.path.join(single, "chip_smoke.csv")) as f:
         want_csv = f.read()
-    total = {"bsd_attention": 0, "mcm_score": 0, "dense_epilogue": 0}
+    total = dict.fromkeys(PATH_KERNELS, 0)
     out = {"phase": "dp", "card": card}
 
     def mcm_launch(name, nproc, *flags):
@@ -2902,7 +2978,8 @@ def dp_phase(work: str) -> dict:
             "-b", str(BATCH), "--n_devices", str(nproc), *flags))
         # each rank encodes the prompts
         per_rank = {"bsd_attention": 12 * n_batches, "mcm_score": n_batches,
-                    "dense_epilogue": EPI_IMAGE * n_batches + EPI_TEXT}
+                    "dense_epilogue": EPI_IMAGE * n_batches + EPI_TEXT,
+                    "layer_norm": LN_IMAGE * n_batches + LN_TEXT}
         for r in reports:
             _check_only(r["launches"], per_rank,
                         f"{name} rank {r['rank']} over {n_batches} image "
@@ -2959,9 +3036,10 @@ def dp_phase(work: str) -> dict:
     for r in reports:
         _check_only(r["launches"], {"bsd_attention": 12 * maha_batches,
                                     "dense_epilogue": EPI_IMAGE
-                                    * maha_batches},
+                                    * maha_batches,
+                                    "layer_norm": LN_IMAGE * maha_batches},
                     f"{name} rank {r['rank']} over {maha_batches} batches")
-        for k in ("bsd_attention", "dense_epilogue"):
+        for k in ("bsd_attention", "dense_epilogue", "layer_norm"):
             total[k] += r["launches"][k]
     tail = N_OOD // MAHA_BATCH * MAHA_BATCH
     names = ["ID_ImageNet10", *OOD_SETS]
@@ -3057,13 +3135,14 @@ def local_dp_phase(work: str) -> dict:
     n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
     out = {"phase": "local_dp", "card": card, "device": "cuda:0",
            "replicas": 2, "batch": BATCH}
-    total = {"bsd_attention": 0, "mcm_score": 0, "dense_epilogue": 0}
+    total = dict.fromkeys(PATH_KERNELS, 0)
     for model, per_batch, per_run in (
             ("CLIP", {"bsd_attention": 12, "mcm_score": 1,
-                      "dense_epilogue": EPI_IMAGE},
-             {"dense_epilogue": EPI_TEXT}),
+                      "dense_epilogue": EPI_IMAGE, "layer_norm": LN_IMAGE},
+             {"dense_epilogue": EPI_TEXT, "layer_norm": LN_TEXT}),
             ("vit-Linear", {"bsd_attention": 12,
-                            "dense_epilogue": EPI_VIT_IMAGE}, {})):
+                            "dense_epilogue": EPI_VIT_IMAGE,
+                            "layer_norm": LN_VIT_IMAGE}, {})):
         row = out[model] = _local_cli(work, model, per_batch, n_batches,
                                       per_run)
         one, two = row["one_device"], row["two_replicas"]
@@ -3197,7 +3276,7 @@ def _tp_batch_times(data: str, ckpt: str, precision: str, batch: int,
     """One batch at T = 1 and T = 2 on card 0 under ``precision``: the
     scores held to each other, the device ms of a batch, the peak memory
     of the model and a batch, and the launches of the T = 2 batch (the
-    dense epilogue's alone, in fast)."""
+    dense epilogue's and the LayerNorm's alone, in fast)."""
     import gc
     counters = _all_counters()
     out, scores = {}, {}
@@ -3216,9 +3295,9 @@ def _tp_batch_times(data: str, ckpt: str, precision: str, batch: int,
         launches = {n: fn.launches for n, fn in counters.items()}
         if tp == 2:
             # fp32 (parity, and ODIN's policy) launches nothing
-            dense = (EPI_TP2_TOWER if precision == "fast" and score != "odin"
-                     else 0)
-            _check_only(launches, {"dense_epilogue": dense},
+            bf16 = precision == "fast" and score != "odin"
+            _check_only(launches, {"dense_epilogue": EPI_TP2_TOWER * bf16,
+                                   "layer_norm": LN_IMAGE * bf16},
                         f"T = 2 {score} batch ({precision})")
         out[f"tp{tp}"] = {
             "batch_ms": cuda_ms(lambda: step.score(params, images, text),
@@ -3365,7 +3444,9 @@ def tp_phase(work: str) -> dict:
     fast, fast_dir, fast_csv = cli("tp2_fast", *TP_FLAGS)
     n_batches = -(-N_ID // BATCH) + len(OOD_SETS) * -(-N_OOD // BATCH)
     _check_only(fast["launches"], {"dense_epilogue": EPI_TP2_TOWER
-                                   * (n_batches + 1)},
+                                   * (n_batches + 1),
+                                   "layer_norm": LN_IMAGE * n_batches
+                                   + LN_TEXT},
                 f"the T = 2 fast CLI run over {n_batches} image batches and "
                 f"1 prompt batch")
     single = _log_dir(work, "ImageNet", "MCM", "chip_smoke")
@@ -3441,7 +3522,8 @@ def tp_phase(work: str) -> dict:
     tp_s = time.perf_counter() - t
     chunks = -(-len(images) // SERVE_MESH_BUCKETS[-1])
     _check_only({n: fn.launches for n, fn in counters.items()},
-                {"dense_epilogue": 2 * EPI_TP2_TOWER * chunks},
+                {"dense_epilogue": 2 * EPI_TP2_TOWER * chunks,
+                 "layer_norm": 2 * LN_IMAGE * chunks},
                 f"the data 2 × model 2 detector over {chunks} batches")
     s_one = dets["one"].score_images(images)
     with MicroBatcher(det, max_wait_ms=5) as mb:
@@ -3517,10 +3599,12 @@ def tp_phase(work: str) -> dict:
 
 
 def _counters() -> dict:
-    from mcm_tpu_torch.ops import attention, dense_epilogue, mcm_score, mlp
+    from mcm_tpu_torch.ops import (attention, dense_epilogue, layer_norm,
+                                   mcm_score, mlp)
     return {"bsd_attention": attention.bsd_attention,
             "mcm_score": mcm_score.mcm_score, "fused_mlp": mlp.fused_mlp,
             "dense_epilogue": dense_epilogue.dense_epilogue,
+            "layer_norm": layer_norm.layer_norm,
             **{n: getattr(attention, n) for n in ATTN_KNOBS}}
 
 
@@ -3574,7 +3658,7 @@ def bench_phase() -> dict:
         want.update({"fused_mlp": layers * batches, name: layers * batches,
                      "mcm_score": batches,
                      "dense_epilogue": EPI_LAYER_FUSED_MLP * layers
-                     * batches})
+                     * batches, "layer_norm": LN_IMAGE * batches})
         check(launches == want, f"bench with MCM_BENCH_ATTN={attn}: launches "
               f"{launches}, want {want} for {batches} image batches")
         path_launches["fused_mlp"] += launches["fused_mlp"]
@@ -3620,9 +3704,10 @@ def bench_phase() -> dict:
           and launches["bsd_attention"] == layers * launches["mcm_score"]
           and launches["dense_epilogue"] == EPI_LAYER
           * launches["bsd_attention"]
+          and launches["layer_norm"] == LN_IMAGE * launches["mcm_score"]
           and all(launches[n] == 0 for n in ("fused_mlp", *ATTN_KNOBS)),
-          f"default bench launches {launches}: want 12 bsd and 72 dense "
-          f"epilogues per mcm, no other")
+          f"default bench launches {launches}: want 12 bsd, 72 dense "
+          f"epilogues and {LN_IMAGE} LayerNorms per mcm, no other")
     check(all(row[k] and row[k] > 0 for k in (
         "value", "e2e_img_per_sec", "e2e_decode_img_per_sec",
         "e2e_transfer_ceiling_img_per_sec")),
@@ -3650,7 +3735,9 @@ def bench_phase() -> dict:
     check(row["e2e_decoder"] == "native" and pil_row["e2e_decoder"] == "PIL",
           f"e2e decoders {row['e2e_decoder']} / {pil_row['e2e_decoder']}")
     check(pil_launches["bsd_attention"] == layers * pil_launches["mcm_score"]
-          > 0, f"PIL bench launches {pil_launches}")
+          > 0 and pil_launches["layer_norm"]
+          == LN_IMAGE * pil_launches["mcm_score"],
+          f"PIL bench launches {pil_launches}")
     card = card_line()
     for r in (row, pil_row):
         print(f"bench e2e ({r['e2e_decoder']}): {r['e2e_img_per_sec']} img/s; "
@@ -3799,6 +3886,8 @@ KERNELS = {
                              "tools/qkv_probe.py:93"),
     "dense_epilogue": ("cuda", "mcm_tpu_torch/csrc/dense_epilogue.cu",
                        "none, XLA fusion"),
+    "layer_norm": ("cuda", "mcm_tpu_torch/csrc/layer_norm.cu",
+                   "none, XLA fusion"),
 }
 
 

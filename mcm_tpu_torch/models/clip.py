@@ -14,9 +14,11 @@ The model state is :class:`CLIP`, an ``nn.Module`` whose ``vision`` and
 plain functions on tensors.  Numerics follow the JAX package: QuickGELU,
 LayerNorm in fp32, every product accumulated in fp32
 (:func:`mcm_tpu_torch.ops.numerics.matmul_f32`), activations in
-``precision.activation_dtype``.  A tower whose ``hidden_act`` is ``"gelu"``
-(OpenCLIP's ViT-bigG/14, which the JAX package lacks) runs the exact erf
-GELU in fp32 on the biased product, before its one rounding.  What follows
+``precision.activation_dtype``.  A bf16 LayerNorm runs on the card as one
+kernel (:mod:`mcm_tpu_torch.ops.layer_norm`) with the same roundings.  A
+tower whose ``hidden_act`` is ``"gelu"`` (OpenCLIP's ViT-bigG/14, which the
+JAX package lacks) runs the exact erf GELU in fp32 on the biased product,
+before its one rounding.  What follows
 a product with a bias (the bias add, the rounding, the activation or the
 residual add) runs on the card as one kernel
 (:mod:`mcm_tpu_torch.ops.dense_epilogue`) with the same roundings.
@@ -39,6 +41,7 @@ from torch import nn
 
 from mcm_tpu_torch.config import Precision, TextConfig, VisionConfig
 from mcm_tpu_torch.ops import dense_epilogue as epi
+from mcm_tpu_torch.ops import layer_norm as ln
 from mcm_tpu_torch.ops.attention import encoder_attention
 from mcm_tpu_torch.ops.mlp import fused_mlp
 from mcm_tpu_torch.ops.numerics import matmul_f32
@@ -88,13 +91,17 @@ class CLIP(ParamTree):
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
-    """LayerNorm in fp32 regardless of input dtype (returns input dtype)."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * scale.float() + bias.float()
-    return y.to(x.dtype)
+    """LayerNorm in fp32 regardless of input dtype (returns input dtype):
+    one kernel where :func:`~mcm_tpu_torch.ops.layer_norm.takes_kernel`
+    allows, else the plain chain; the same numbers either way.
+    ``layer_norm.plain`` counts the calls that took the plain chain."""
+    if ln.takes_kernel(x, scale, bias):
+        return ln.layer_norm(x, scale.float(), bias.float(), eps)
+    layer_norm.plain += 1
+    return ln.layer_norm_reference(x, scale, bias, eps)
+
+
+layer_norm.plain = 0
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],

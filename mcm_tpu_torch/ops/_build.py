@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "mcm_tpu_torch")
 
 #: every kernel source of the port
 SOURCES = ("bsd_attention", "mcm_score", "fused_mlp", "split_attention",
-           "flash_attention", "bsd_probe", "dense_epilogue")
+           "flash_attention", "bsd_probe", "dense_epilogue", "layer_norm")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -176,5 +176,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mcm_dense_epilogue.restype = i
         lib.mcm_dense_epilogue_error_string.argtypes = [i]
         lib.mcm_dense_epilogue_error_string.restype = ctypes.c_char_p
+    elif name == "layer_norm":
+        lib.mcm_layer_norm.argtypes = [p, ll, p, p, p, ll, i, f, f, p]
+        lib.mcm_layer_norm.restype = i
+        lib.mcm_layer_norm_error_string.argtypes = [i]
+        lib.mcm_layer_norm_error_string.restype = ctypes.c_char_p
     else:
         raise ValueError(f"unknown kernel source {name!r}")

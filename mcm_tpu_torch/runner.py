@@ -62,11 +62,12 @@ from mcm_tpu_torch.data import (DataPipeline, default_out_datasets,
                                 set_train_loader, set_val_loader,
                                 validate_out_datasets)
 from mcm_tpu_torch.metrics import get_and_print_results, print_measures
-from mcm_tpu_torch.models.clip import _dense
+from mcm_tpu_torch.models.clip import _dense, layer_norm
 from mcm_tpu_torch.models.convert import (file_identity, load_params,
                                           resolve_clip_params,
                                           resolve_clip_weight_source)
 from mcm_tpu_torch.models.init import init_clip
+from mcm_tpu_torch.ops import layer_norm as ln
 from mcm_tpu_torch.ops.attention import encoder_attention
 from mcm_tpu_torch.ops.dense_epilogue import dense_epilogue
 from mcm_tpu_torch.parallel import EvalStep, VitLinearStep, multihost
@@ -408,6 +409,8 @@ _TOWER_COUNTS = {
     "towers.dense_epilogue": (dense_epilogue, "launches"),
     "towers.dense_epilogue_gelu": (dense_epilogue, "gelu_launches"),
     "towers.dense_plain": (_dense, "plain"),
+    "towers.layer_norm": (ln.layer_norm, "launches"),
+    "towers.layer_norm_plain": (layer_norm, "plain"),
     "towers.attention_bsd": (encoder_attention, "bsd"),
     "towers.attention_math": (encoder_attention, "math"),
 }
@@ -418,7 +421,9 @@ def _tower_counts(tel: Telemetry):
     """Adds to ``tel``'s counters what the towers did inside the block: the
     dense epilogues launched (``towers.dense_epilogue``, of them in the
     erf-GELU mode ``towers.dense_epilogue_gelu``), the plain chains run
-    (``towers.dense_plain``) and the attention calls by route
+    (``towers.dense_plain``), the LayerNorm kernels launched
+    (``towers.layer_norm``) and the LayerNorms on the plain chain
+    (``towers.layer_norm_plain``), and the attention calls by route
     (``towers.attention_bsd``, ``towers.attention_math``)."""
     before = {n: getattr(*src) for n, src in _TOWER_COUNTS.items()}
     try:

@@ -43,6 +43,7 @@ def test_inputs_follow_includes_through_headers():
     assert _build._inputs("mcm_score") == ["mcm_score.cu"]
     assert _build._inputs("fused_mlp") == ["fused_mlp.cu"]
     assert _build._inputs("dense_epilogue") == ["dense_epilogue.cu"]
+    assert _build._inputs("layer_norm") == ["layer_norm.cu"]
 
 
 @pytest.mark.parametrize("header,changed", [
@@ -101,6 +102,16 @@ def test_declare_dense_epilogue_passes_pointers_and_64_bit_sizes():
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     assert lib.fns["mcm_dense_epilogue"].argtypes == [p, p, p, p, ll, ll, i, p]
     assert lib.fns["mcm_dense_epilogue"].restype is i
+
+
+def test_declare_layer_norm_passes_64_bit_sizes_and_fp32_scalars():
+    lib = _Lib()
+    _build._declare("layer_norm", lib)
+    p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
+    assert lib.fns["mcm_layer_norm"].argtypes == [p, ll, p, p, p, ll, i, f, f,
+                                                  p]
+    assert lib.fns["mcm_layer_norm"].restype is i
 
 
 def test_declare_refuses_an_unknown_source():

@@ -42,7 +42,12 @@ device does (parity at rtol 1e-4 / atol 1e-5, fast at 5e-3 / 5e-4),
 launch no kernel, and refuse a forced one.  The dense epilogue has no
 tolerance: bit-equality.  Each mode's bf16 output has the bits of the plain
 chain's on the same fp32 product, and ViT-L/14's features with the kernel
-those without it.
+those without it.  So has the LayerNorm kernel: at every tower width, at
+ViT-L/14's and ViT-bigG/14's rows, at ragged and small row counts, at eps
+1e-5 and 1e-12, on rows whose mean is large against their spread and on
+the strided CLS rows, each output has the bits of the plain chain's (the
+same roundings, sums in the order of ATen's mean), and ViT-L/14's features
+with the kernel those without it.
 """
 
 import dataclasses
@@ -1414,3 +1419,123 @@ def test_encoder_attention_route_is_counted(cuda, width, route):
                                    atol=5e-2)
     else:
         assert _bits_equal(got, want)
+
+
+# -- LayerNorm: bit-equal to the plain chain -------------------------------------
+
+#: every width of the port's towers: text 512, 768, 1280; vision 768, 1024,
+#: 1664
+_LN_WIDTHS = [512, 768, 1024, 1280, 1664]
+#: ViT-L/14's and ViT-bigG/14's rows at B = 512, rows that leave the last
+#: block of 8 warps ragged, and the wide kernel's counts below 16
+_LN_ROWS = [512 * 257, 1001, 15, 8, 3, 1]
+
+
+def _ln_operands(rows, c, device, seed=0, offset=0.0):
+    """bf16 rows of a few units around ``offset``, every third row around
+    ``offset + 300`` with a spread of 1 (a mean large against the spread,
+    which the two-pass variance is for), a constant row and a zero row;
+    fp32 scale and bias."""
+    gen = torch.Generator(device=device).manual_seed(seed + rows + c)
+    x = offset + torch.randn((rows, c), generator=gen, device=device) * 2.0
+    x[::3] = 300.0 + offset + torch.randn((len(x[::3]), c), generator=gen,
+                                          device=device)
+    x[0] = 7.25
+    if rows > 1:
+        x[1] = 0.0
+    scale = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=device)
+    bias = 0.1 * torch.randn((c,), generator=gen, device=device)
+    return x.bfloat16(), scale, bias
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+@pytest.mark.parametrize("rows", _LN_ROWS)
+@pytest.mark.parametrize("c", _LN_WIDTHS)
+def test_layer_norm_is_bit_equal_to_the_plain_chain(cuda, c, rows, eps):
+    from mcm_tpu_torch.ops import layer_norm as ln
+    x, scale, bias = _ln_operands(rows, c, cuda)
+    before = ln.layer_norm.launches
+    got = ln.layer_norm(x, scale, bias, eps)
+    torch.cuda.synchronize()
+    assert ln.layer_norm.launches == before + 1
+    want = ln.layer_norm_reference(x, scale, bias, eps)
+    differ = (got.view(torch.int16) != want.view(torch.int16)).float().mean()
+    assert _bits_equal(got, want), f"{float(differ):.3e} of outputs differ"
+
+
+@pytest.mark.parametrize("b", [512, 7])
+@pytest.mark.parametrize("c", [1024, 1664])
+def test_layer_norm_on_strided_cls_rows(cuda, b, c):
+    """The post-LN's rows ``x[:, 0, :]`` of [B, 257, C]: the kernel walks
+    them at their row stride, with the bits of the chain on the copy."""
+    from mcm_tpu_torch.models import clip as tclip
+    from mcm_tpu_torch.ops import layer_norm as ln
+    x, scale, bias = _ln_operands(b * 257, c, cuda, seed=1)
+    cls = x.view(b, 257, c)[:, 0, :]
+    assert not cls.is_contiguous() and ln.takes_kernel(cls, scale, bias)
+    launched, plain = ln.layer_norm.launches, tclip.layer_norm.plain
+    with torch.no_grad():
+        got = tclip.layer_norm(cls, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert (ln.layer_norm.launches, tclip.layer_norm.plain) == (launched + 1,
+                                                                plain)
+    assert _bits_equal(got, ln.layer_norm_reference(cls.contiguous(), scale,
+                                                    bias, 1e-5))
+
+
+@pytest.mark.parametrize("bad", ["scale of another width", "width off 128"])
+def test_layer_norm_raises_where_the_kernel_cannot_take_its_inputs(cuda, bad):
+    """A bf16 CUDA tensor whose route is the kernel's and whose scale the
+    kernel cannot read raises there instead of falling back to the plain
+    chain; the wrapper refuses a width the kernel does not take."""
+    from mcm_tpu_torch.models import clip as tclip
+    from mcm_tpu_torch.ops import layer_norm as ln
+    x, scale, bias = _ln_operands(64, 1024, cuda)
+    launched, plain = ln.layer_norm.launches, tclip.layer_norm.plain
+    with pytest.raises(ValueError):
+        if bad == "scale of another width":
+            tclip.layer_norm(x, scale[:512], bias, 1e-5)
+        else:
+            ln.layer_norm(x[:, :320], scale[:320], bias[:320], 1e-5)
+    assert (ln.layer_norm.launches, tclip.layer_norm.plain) == (launched,
+                                                                plain)
+
+
+def test_l14_tower_is_bit_equal_with_and_without_the_layer_norm(cuda,
+                                                                 monkeypatch):
+    """``encode_image`` at ViT-L/14, B = 8, fast: the features with the
+    kernel equal those of the plain chain to the bit, and the tower
+    launches it 50 times (pre-LN, 2 × 24 layers, post-LN on the CLS
+    rows)."""
+    from mcm_tpu_torch.config import CLIP_CONFIGS
+    from mcm_tpu_torch.models import clip as tclip
+    from mcm_tpu_torch.models.init import init_vision
+    from mcm_tpu_torch.ops import layer_norm as ln
+
+    cfg = CLIP_CONFIGS["ViT-L/14"]().vision
+    tree = init_vision(3, cfg)
+    rng = np.random.default_rng(4)
+    for group in tree["layers"].values():
+        for name in group:
+            if name in ("scale", "bias"):
+                group[name] = (float(name == "scale") + 0.1
+                               * rng.standard_normal(group[name].shape)
+                               ).astype(np.float32)
+    params = tclip.ParamTree({"vision": tree}, cuda, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal(
+        (8, cfg.image_size, cfg.image_size, 3)).astype(np.float32)).to(cuda)
+    fast = Precision.fast()
+
+    def totals():
+        return ln.layer_norm.launches, tclip.layer_norm.plain
+
+    with torch.no_grad():
+        launched, plain = totals()
+        got = tclip.encode_image(params, cfg, x, fast)
+        torch.cuda.synchronize()
+        assert totals() == (launched + 50, plain)
+        monkeypatch.setattr(ln, "takes_kernel", lambda *a, **k: False)
+        want = tclip.encode_image(params, cfg, x, fast)
+        assert totals() == (launched + 50, plain + 50)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _bits_equal(got, want)
